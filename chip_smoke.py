@@ -12,7 +12,7 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel).
 3. kernels — holds each kernel against its plain PyTorch version on the
-   card, with the stated tolerance, at every shape phases 4 and 5 give it
+   card, with the stated tolerance, at every shape phases 4 to 7 give it
    (the paper's full sizes, MRI-Q's bench size) and at one shape off the
    kernel's grain (FIR: N=4000, where the default block_n 512 is clamped
    to 500; MRI-Q: 300 x 200, ragged in both loops); times kernel, plain version and (for the FIR bank) a one-call
@@ -26,6 +26,22 @@ Phases, each printed as it runs; any failure exits non-zero:
    at the paper's full sizes, held against the all-offload builds.  The
    kernels' launch counters are zeroed before phase 4 and read here: both
    must have launched.
+6. serve   — the slice-2 main path: plans ``make_lm_program
+   ("mistral-nemo-12b")`` (staged, temporary plan cache, then a cache hit),
+   builds full-width Mistral-NeMo-12B (40 layers, random weights from a
+   seeded generator on the card) and serves 6 greedy requests (prompts
+   2,060 / 2,048 / 1,000 / 300 / 100 / 9 tokens, buckets 2,080 / 2,048 /
+   1,024 / 512 / 128 / 16) on 4 slots at ctx 2,080 with ``attn_core=hopper``
+   over the planned pattern.  Every request must finish with 16 tokens,
+   and each request's prefill logits under ``attn_core=hopper`` must agree
+   with ``attn_core=ref`` on the same params.  ``flash_attention`` must
+   have launched in this phase.
+7. decode_attn plan — plans ``make_decode_program()`` (a real Step 4
+   measuring ``decode_attn=hopper``, then a cache hit);
+   ``decode_attention`` must have launched in this phase.
+
+Every launch counter is set to 0 just before the path it belongs to runs
+and read just after it; the comparisons of phase 3 do not count.
 
 The line before the last is one JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -43,9 +59,29 @@ from pathlib import Path
 # published H100 SXM peaks at the full 700 W limit (NVIDIA data sheet):
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# the special-function units retire 16 sines/cosines per clock per SM
+BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
+# the special-function units retire 16 sines/cosines/exps per clock per SM
 # against 128 FP32 FMAs (256 flops): 1/16 of the FP32 flop rate
 SFU_OPS_PER_S = FP32_FLOPS_PER_S / 16
+
+ARCH = "mistral-nemo-12b"
+SERVE_PROMPTS = (2060, 2048, 1000, 300, 100, 9)   # buckets 2080 ... 16
+SERVE_BUCKETS = (2080, 2048, 1024, 512, 128, 16)
+SERVE_CTX = 2080
+SERVE_SLOTS = 4
+SERVE_NEW_TOKENS = 16
+# prefill logits of attn_core=hopper against attn_core=ref on the same
+# params.  The two attention paths differ only in where they round to bf16
+# (p against a 64-key tile's running max or a 1,024-key chunk's; o to
+# bf16), about one bf16 ulp of the unit-scale attention output per layer,
+# and the init's oversized output projections (std 1/sqrt(layers)) carry
+# that noise through all 40 layers to the float32 logits.  So the
+# tolerance is relative to the same noise measured in this run, between
+# two plain chunkings, attn_core=offload (1,024 x 2,048 chunks) against
+# ref: at most 3x it, and never below 0.05.  A wrong mask, head or tile
+# moves the logits by O(1).
+LOGIT_NOISE_FACTOR = 3.0
+LOGIT_TOL_MIN = 0.05
 
 ROOT = Path(__file__).resolve().parent
 
@@ -123,7 +159,42 @@ def mriq_bound_ms(num_x: int, num_k: int) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits in one head of S x S attention."""
+    n = 0
+    for i in range(s):
+        hi = i + 1 if causal else s
+        lo = max(0, i - window + 1) if window else 0
+        n += max(hi - lo, 0)
+    return n
+
+
+def flash_bound_ms(b, hq, hkv, s, d, elem, causal, window,
+                   flops_per_s) -> tuple[float, str]:
+    """Least time for prefill attention: q, k, v read once and o written
+    once; per admitted (query, key) pair 4*D flops (QK^T and P.V) at the
+    input type's peak and one exp on the SFUs."""
+    pairs = b * hq * attention_pairs(s, causal, window)
+    t_ops = max(4.0 * d * pairs / flops_per_s, pairs / SFU_OPS_PER_S)
+    t_bytes = elem * (2 * b * hq * s * d + 2 * b * hkv * s * d) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def decode_bound_ms(b, hq, hkv, s, d, elem, flops_per_s) -> tuple[float, str]:
+    """Least time for decode attention with every slot valid: the cache's k
+    and v, q, slot_pos and cur_pos read once, o written once; 4*D flops
+    and one exp per (head, slot)."""
+    pairs = b * hq * s
+    t_ops = max(4.0 * d * pairs / flops_per_s, pairs / SFU_OPS_PER_S)
+    t_bytes = (elem * (2 * b * hkv * s * d + 2 * b * hq * d)
+               + 4 * (b * s + b)) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     # ---- 1. device ------------------------------------------------------
@@ -140,8 +211,19 @@ def main() -> int:
     from repro_torch.core.planner import AutoOffloader, PlannerConfig
     from repro_torch.core.regions import Impl, variants
     from repro_torch.core.resources import precompile
+    from repro_torch.apps.decode_attn import make_decode_program
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fir, mriq
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import factory as F
+    from repro_torch.models.offload_program import make_lm_program
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import ServeEngine
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    counters = (fir.fir_filter_bank, mriq.mriq_compute_q, FA.flash_attention,
+                DA.decode_attention)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -270,10 +352,136 @@ def main() -> int:
         del args, got, want
     torch.cuda.empty_cache()
 
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16 2e-2 and f32 2e-5: the flash tolerances of tests/test_kernels.py
+    # (outputs are averages of unit normals; bf16 rounding of p and o)
+    tols = {bf16: 2e-2, f32: 2e-5}
+    flops_rate = {bf16: BF16_FLOPS_PER_S, f32: FP32_FLOPS_PER_S}
+    flash_cases = [(f"serve S={n}", 1, 32, 8, n, 128, bf16, 0)
+                   for n in SERVE_BUCKETS]
+    flash_cases += [("serve S=2080 window=512", 1, 32, 8, 2080, 128, bf16, 512),
+                    ("planner (reduced)", 2, 4, 2, 128, 16, bf16, 0),
+                    ("planner (reduced) f32", 2, 4, 2, 128, 16, f32, 0),
+                    ("ragged f32 window=48", 1, 8, 2, 300, 64, f32, 48)]
+    for label, b, hq, hkv, n, d, dt, window in flash_cases:
+        q, k, v = randn(b, hq, n, d, dtype=dt), randn(b, hkv, n, d, dtype=dt), \
+            randn(b, hkv, n, d, dtype=dt)
+        got = FA.flash_attention(q, k, v, causal=True, window=window)
+        want = FA.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        tol = tols[dt]
+        assert_close(torch, got.float(), want.float(), f"flash_attention {label}",
+                     rtol=tol, atol=tol)
+        err = max_abs_err(torch, got.float(), want.float())
+        line = (f"flash_attention {label} [B={b}, Hq={hq}, Hkv={hkv}, S={n}, "
+                f"D={d}] {str(dt).removeprefix('torch.')} causal: max_abs_err="
+                f"{err:.3e} (tol rtol=atol={tol})")
+        elem = 2 if dt == bf16 else 4
+        bound_ms, bound_by = flash_bound_ms(b, hq, hkv, n, d, elem, True,
+                                            window, flops_rate[dt])
+        if label.startswith("serve"):
+            ms, ms_range = cuda_ms(torch, lambda: FA.flash_attention(
+                q, k, v, causal=True, window=window), 10)
+            line += (f"; kernel {ms:.4f} ms {ms_range}, bound "
+                     f"{bound_ms * 1e3:.2f} us ({bound_by})")
+        print(line)
+        if label == "serve S=2048":
+            lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
+                         rtol=tol, atol=tol)
+            plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
+                q, k, v, causal=True), 3)
+            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True), 20)
+            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+                  f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range}  bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
+                  f"{clocks()}")
+            est = precompile("attn_core", "hopper",
+                             variants("attn_core")["hopper"], (q, k, v))
+            print(f"  cudaFuncGetAttributes: {FA.kernel_attributes()}; dynamic "
+                  f"smem {FA.smem_bytes(FA.DEFAULT_BLOCK_Q, FA.DEFAULT_BLOCK_K, d)}"
+                  f" B/block; Step-3 estimate {est.resource_bytes:.0f} B/block")
+            rows["flash_attention"] = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:74",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # decode: bf16 2e-2 as above; f32 5e-6, the decode tolerance of
+    # tests/test_kernels.py (float32 throughout, summation order only)
+    dtols = {bf16: 2e-2, f32: 5e-6}
+    lens = (2076, 2060, 1015, 316)       # valid slots per row when empties
+    decode_cases = [("serve, empties", 4, 32, 8, 2080, 128, bf16, 0, True),
+                    ("serve, empties, window=512", 4, 32, 8, 2080, 128, bf16,
+                     512, True),
+                    ("serve, full cache", 4, 32, 8, 2080, 128, bf16, 0, False),
+                    ("decode_attn program (f32)", 2, 8, 2, 512, 64, f32, 0,
+                     False)]
+    for label, b, hq, hkv, n, d, dt, window, empties in decode_cases:
+        q = randn(b, hq, 1, d, dtype=dt)
+        k, v = randn(b, hkv, n, d, dtype=dt), randn(b, hkv, n, d, dtype=dt)
+        sp = torch.arange(n, dtype=torch.int32, device=dev).repeat(b, 1)
+        cp = torch.full((b,), n - 1, dtype=torch.int32, device=dev)
+        if empties:
+            for i, m in enumerate(lens[:b]):
+                sp[i, m:] = -1
+                cp[i] = m - 1
+        got = DA.decode_attention(q, k, v, sp, cp, window=window)
+        want = DA.decode_attention_plain(q, k, v, sp, cp, window=window)
+        torch.cuda.synchronize()
+        tol = dtols[dt]
+        assert_close(torch, got.float(), want.float(),
+                     f"decode_attention {label}", rtol=tol, atol=tol)
+        err = max_abs_err(torch, got.float(), want.float())
+        print(f"decode_attention {label} [B={b}, Hq={hq}, Hkv={hkv}, S={n}, "
+              f"D={d}] {str(dt).removeprefix('torch.')}: max_abs_err={err:.3e} "
+              f"(tol rtol=atol={tol})")
+        if label == "serve, full cache":
+            lib = sdpa(q, k, v, enable_gqa=True)
+            assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
+                         rtol=tol, atol=tol)
+            ms, ms_range = cuda_ms(torch, lambda: DA.decode_attention(
+                q, k, v, sp, cp), 50)
+            plain_ms, plain_range = cuda_ms(torch, lambda: DA.decode_attention_plain(
+                q, k, v, sp, cp), 10)
+            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
+                q, k, v, enable_gqa=True), 50)
+            bound_ms, bound_by = decode_bound_ms(b, hq, hkv, n, d, 2,
+                                                 flops_rate[dt])
+            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+                  f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range}  bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
+                  f"{clocks()}")
+            est = precompile("decode_attn", "hopper",
+                             variants("decode_attn")["hopper"],
+                             (q, k, v, sp, cp))
+            print(f"  cudaFuncGetAttributes: {DA.kernel_attributes()}; dynamic "
+                  f"smem {DA.smem_bytes(hq // hkv, d, DA.DEFAULT_BLOCK_K)} "
+                  f"B/block; Step-3 estimate {est.resource_bytes:.0f} B/block")
+            rows["decode_attention"] = {
+                "name": "decode_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:67",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
     # ---- 4. planner (main path; launch counters zeroed here) ------------
     phase("4. planner")
-    fir.fir_filter_bank.launches = 0
-    mriq.mriq_compute_q.launches = 0
+    for counter in counters:
+        counter.launches = 0
     cfg = PlannerConfig(strategy="staged", max_measurements=4, reps=3)
     with tempfile.TemporaryDirectory() as tmp:
         cache = PlanCache(Path(tmp) / "plans.json")
@@ -340,15 +548,146 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
         rows[name]["launches"] = count
 
+    # ---- 6. serve full-width Mistral-NeMo-12B (slice-2 main path) -------
+    phase("6. serve")
+    for counter in counters:
+        counter.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(Path(tmp) / "plans.json")
+        prog = make_lm_program(ARCH, device=dev)
+        t0 = time.perf_counter()
+        report = AutoOffloader(cfg).plan(prog, cache=cache)
+        print(report.summary())
+        print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
+              f"{len(report.measurements)} measurements")
+        if not (report.baseline.ok and report.measurements):
+            raise AssertionError(f"{prog.name}: unsound plan")
+        again = AutoOffloader(cfg).plan(prog, cache=cache)
+        if not again.from_cache or again.measurements:
+            raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
+        print(f"re-plan: served from plan cache with "
+              f"{len(again.measurements)} measurements")
+    impl = Impl({**report.best_impl(), "attn_core": "hopper"})
+    ncfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    print(f"{ARCH}: {ncfg.num_layers} layers (full depth), d_model "
+          f"{ncfg.d_model}, heads {ncfg.num_heads}/{ncfg.num_kv_heads} x "
+          f"{ncfg.resolved_head_dim}, d_ff {ncfg.d_ff}, vocab "
+          f"{ncfg.vocab_size}: {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+          f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
+          f" GiB bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                         seed=0, impl=impl)
+    prompts = [F.synthetic_request(ncfg, n, seed=100 + i)[0]
+               for i, n in enumerate(SERVE_PROMPTS)]
+    for prompt in prompts:
+        engine.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
+    t0 = time.perf_counter()
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches while serving: {serve_launches}")
+    st = engine.stats()
+    for req in done:
+        print(f"req {req.rid}: prompt {req.tokens.size:4d} (bucket "
+              f"{req.bucket:4d}) | wait {req.queue_wait_s * 1e3:8.1f} ms | ttft "
+              f"{req.ttft_s * 1e3:8.1f} ms | decode {req.decode_tps:7.1f} tok/s "
+              f"| {len(req.generated)} tokens")
+    print(f"served {st['requests_finished']} requests / "
+          f"{st['generated_tokens']} tokens in {wall:.2f} s "
+          f"({st['generated_tokens'] / wall:.1f} tok/s aggregate) with "
+          f"{impl.describe()}; TTFT mean {st['ttft_s_mean'] * 1e3:.1f} ms, "
+          f"p50 {st['ttft_s_p50'] * 1e3:.1f} ms; decode tok/s per request mean "
+          f"{st['decode_tps_mean']:.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
+    if (len(done) != len(SERVE_PROMPTS)
+            or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
+            or tuple(r.bucket for r in done) != SERVE_BUCKETS):
+        raise AssertionError(f"serve: {len(done)} finished, tokens "
+                             f"{[len(r.generated) for r in done]}, buckets "
+                             f"{[r.bucket for r in done]}")
+    if serve_launches["flash_attention"] <= 0:
+        raise AssertionError("flash_attention was not launched on the main "
+                             "path")
+
+    # the prefill logits of each request under hopper against ref (the
+    # engine's own prefill entry point), with offload as the noise floor of
+    # two plain chunkings
+    def prefill_logits(variant: str, prompt):
+        step = F.make_bucketed_prefill_step(
+            ncfg, impl=Impl({**impl, "attn_core": variant}), ctx=SERVE_CTX)
+        n = prompt.size
+        padded = np.zeros((1, F.prefill_bucket(n, SERVE_CTX)), np.int32)
+        padded[0, :n] = prompt
+        logits, _ = step(params, {"tokens": torch.from_numpy(padded).to(dev)},
+                         n)
+        return logits[0, -1]
+
+    worst = floor = 0.0
+    agree = 0
+    for prompt in prompts:
+        hop, ref = prefill_logits("hopper", prompt), prefill_logits("ref", prompt)
+        off = prefill_logits("offload", prompt)
+        if not bool(torch.isfinite(hop).all()):
+            raise AssertionError("serve: non-finite prefill logits")
+        diff = float((hop - ref).abs().max())
+        worst = max(worst, diff)
+        floor = max(floor, float((off - ref).abs().max()))
+        agree += int(hop.argmax() == ref.argmax())
+        print(f"  prompt {prompt.size:4d}: max |logits(hopper) - logits(ref)| "
+              f"= {diff:.3e}, max |logits(ref)| = {float(ref.abs().max()):.3f}")
+    tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
+    print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; noise "
+          f"floor (offload vs ref) {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} "
+          f"x floor, {LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
+          f"{agree}/{len(prompts)} prompts")
+    if worst > tol:
+        raise AssertionError(f"serve: hopper and ref prefill logits differ by "
+                             f"{worst:.3e} > {tol:.3e}")
+    del engine, params, leaves
+    torch.cuda.empty_cache()
+
+    # ---- 7. plan the decode_attn program ------------------------------
+    phase("7. decode_attn plan")
+    for counter in counters:
+        counter.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(Path(tmp) / "plans.json")
+        prog = make_decode_program(device=dev)
+        report = AutoOffloader(cfg).plan(prog, cache=cache)
+        print(report.summary())
+        if not any(m.ok and m.mapping().get("decode_attn") == "hopper"
+                   for m in report.measurements):
+            raise AssertionError("decode_attn=hopper was not measured")
+        again = AutoOffloader(cfg).plan(prog, cache=cache)
+        if not again.from_cache or again.measurements:
+            raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
+        print(f"re-plan: served from plan cache with "
+              f"{len(again.measurements)} measurements")
+    decode_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches while planning decode_attn: {decode_launches}")
+    if decode_launches["decode_attention"] <= 0:
+        raise AssertionError("decode_attention was not launched on the main "
+                             "path")
+    rows["flash_attention"]["launches"] = serve_launches["flash_attention"]
+    rows["decode_attention"]["launches"] = decode_launches["decode_attention"]
+
     print("kernels: fir_filter_bank ported (cuda), mriq_compute_q ported "
-          "(cuda); to port: flash_attention, decode_attention, rmsnorm, "
-          "ssm_scan, rglru_scan")
+          "(cuda), flash_attention ported (cuda), decode_attention ported "
+          "(cuda); to port: rmsnorm, ssm_scan, rglru_scan")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in ("name", "route", "source", "replaces",
                                     "launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
-        for name in ("fir_filter_bank", "mriq_compute_q")]}))
+        for name in ("fir_filter_bank", "mriq_compute_q", "flash_attention",
+                     "decode_attention")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

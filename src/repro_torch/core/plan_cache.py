@@ -85,6 +85,17 @@ def _sane_entries(entries: dict) -> dict:
     return {k: v for k, v in entries.items() if isinstance(v, dict)}
 
 
+def _conditions(program) -> dict:
+    """The program's measurement conditions (``cache_extra``) as a key
+    part; absent when empty, so keys of programs without any stay as they
+    were."""
+    extra = getattr(program, "cache_extra", None)
+    if not extra:
+        return {}
+    return {"measurement_conditions": sorted(
+        (k, repr(v)) for k, v in extra.items())}
+
+
 def plan_cache_key(program, config, backend: str) -> str:
     """Deterministic key for (program, abstract shapes, backend, config).
 
@@ -132,6 +143,7 @@ def plan_cache_key(program, config, backend: str) -> str:
             }
             for r in program.regions
         ],
+        **_conditions(program),
     }
     blob = json.dumps(payload, sort_keys=True, default=repr)
     digest = hashlib.sha256(blob.encode()).hexdigest()[:20]
@@ -153,6 +165,7 @@ def measurement_cache_key(program, backend: str) -> str:
         "backend": backend,
         "regions": [{"name": r.name, "args": r.arg_signature()}
                     for r in program.regions],
+        **_conditions(program),
     }
     blob = json.dumps(payload, sort_keys=True, default=repr)
     return hashlib.sha256(blob.encode()).hexdigest()[:20]

@@ -10,7 +10,7 @@ the region on them, so the paper-size analysis allocates nothing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -48,6 +48,10 @@ class OffloadableProgram:
     device: torch.device                     # where samples and patterns run
     source_loop_count: int = 0               # loops in the original C source
     description: str = ""
+    # measurement conditions folded into the plan-cache keys (e.g. the
+    # batch/seq the sample runs at): anything that changes Step-4 timings
+    # but not the regions' analysis args
+    cache_extra: dict = field(default_factory=dict)
 
 
 def meta(shape, dtype) -> torch.Tensor:

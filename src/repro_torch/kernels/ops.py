@@ -1,0 +1,105 @@
+"""Registration of the model regions' ``hopper`` variants (the hand-written
+CUDA kernels) and of the ``decode_attn`` region — the port of the JAX
+package's ``kernels/ops.py`` for the attention kernels.
+
+Each ``hopper`` variant declares a :class:`TuningSpace` and a Step-3
+shared-memory estimator.  The tile genes differ from the JAX package's:
+its axes (``block_q`` up to 512, ``block_k`` up to 1024, ``0`` = auto)
+were sized for 16 MiB of TPU VMEM, where a 1024 x 128 bf16 K-plus-V tile
+(512 KB) fits; no Hopper block can hold that.  Here the axes are the tile
+sizes the CUDA sources instantiate, and the validity predicate admits a
+point only when its block fits the 232,448 bytes of shared memory a
+Hopper block may use.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.regions import TuningSpace, register_variant
+from repro_torch.core.resources import register_smem_estimator
+from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+
+
+def _dim(args, idx: int, axis: int):
+    """Shape dimension of an abstract region arg, or None when the
+    validity query is unbound (args absent or shaped differently)."""
+    try:
+        return args[idx].shape[axis]
+    except (TypeError, IndexError, AttributeError):
+        return None
+
+
+# ---------------------------------------------------------------------------
+# attn_core: flash attention
+# ---------------------------------------------------------------------------
+def _attn_tile_ok(p, args) -> bool:
+    d = _dim(args, 0, 3)
+    if d is None:
+        return True
+    return (d in FA.HEAD_DIMS
+            and FA.smem_bytes(p["block_q"], p["block_k"], d) <= SMEM_PER_BLOCK)
+
+
+@register_variant("attn_core", "hopper", tuning=TuningSpace(
+    axes={"block_q": FA.BLOCK_QS, "block_k": FA.BLOCK_KS},
+    defaults={"block_q": FA.DEFAULT_BLOCK_Q, "block_k": FA.DEFAULT_BLOCK_K},
+    validity=_attn_tile_ok))
+def attn_core_hopper(q, k, v, *, causal=True, window=0,
+                     block_q=FA.DEFAULT_BLOCK_Q, block_k=FA.DEFAULT_BLOCK_K):
+    return FA.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)
+
+
+@register_smem_estimator("attn_core", "hopper")
+def _attn_hopper_smem(q, k, v, *, block_q=FA.DEFAULT_BLOCK_Q,
+                      block_k=FA.DEFAULT_BLOCK_K, **_):
+    return FA.smem_bytes(block_q, block_k, q.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# decode_attn: one token against the KV cache
+# ---------------------------------------------------------------------------
+@register_variant("decode_attn", "ref")
+def decode_attn_ref(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0):
+    """Loop-faithful decode-attention oracle: dense masked softmax over the
+    whole KV cache, in float32.  The planner's host-side baseline for the
+    region (the hopper kernel computes this, streamed in tiles)."""
+    b, hq, _, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).float()
+    scores = torch.einsum("bhgd,bhsd->bhgs", qg,
+                          k_cache.float()) / math.sqrt(d)
+    valid = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
+    if window:
+        valid = valid & (slot_pos > cur_pos[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", probs, v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _decode_tile_ok(p, args) -> bool:
+    d, hq, hkv = _dim(args, 0, 3), _dim(args, 0, 1), _dim(args, 1, 1)
+    if None in (d, hq, hkv):
+        return True
+    return DA.smem_bytes(hq // hkv, d, p["block_k"]) <= SMEM_PER_BLOCK
+
+
+@register_variant("decode_attn", "hopper", tuning=TuningSpace(
+    axes={"block_k": DA.BLOCK_KS},
+    defaults={"block_k": DA.DEFAULT_BLOCK_K},
+    validity=_decode_tile_ok))
+def decode_attn_hopper(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
+                       block_k=DA.DEFAULT_BLOCK_K):
+    return DA.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos,
+                               window=window, block_k=block_k)
+
+
+@register_smem_estimator("decode_attn", "hopper")
+def _decode_hopper_smem(q, k_cache, *_, block_k=DA.DEFAULT_BLOCK_K, **__):
+    return DA.smem_bytes(q.shape[1] // k_cache.shape[1], q.shape[-1], block_k)

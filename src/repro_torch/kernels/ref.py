@@ -1,4 +1,4 @@
-"""Plain-PyTorch oracles for the paper apps' kernels (the allclose targets).
+"""Plain-PyTorch oracles for the kernels (the allclose targets).
 
 Loop-faithful to the C originals (tdFIR, MRI-Q): the loops go through
 :func:`repro_torch.core.loops.fori_loop`, so the planner's analysis sees
@@ -83,3 +83,28 @@ def mriq_ref_loopy(x, y, z, kx, ky, kz, phi_mag):
             qr[i] += phi_mag[j] * np.cos(ph)
             qi[i] += phi_mag[j] * np.sin(ph)
     return qr, qi
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (causal / windowed, GQA)
+# ---------------------------------------------------------------------------
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense softmax attention oracle.  q: [B,Hq,S,D], k/v: [B,Hkv,S,D]."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(d)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, s, d).to(q.dtype)

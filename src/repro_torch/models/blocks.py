@@ -1,0 +1,204 @@
+"""Per-layer block templates and apply functions — the port of the JAX
+package's ``models/blocks.py`` for dense decoders: attention (full and
+sliding-window, GQA) and the SwiGLU MLP.
+
+Each block kind provides ``<kind>_template(cfg)`` (a ParamSpec tree, one
+layer, unstacked), ``<kind>_apply`` (full sequence) and, for attention,
+``attn_decode`` (one token against the cache) and
+``attn_cache_template``.  Blocks route their hot loops through
+:func:`repro_torch.core.regions.dispatch`, so the planner can swap
+implementations.  The JAX sharding constraints have no counterpart on one
+card; the MoE, SSM, RG-LRU, gelu-MLP and conv-stem blocks come with slice 3
+of the port.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.regions import dispatch, register_variant
+from repro_torch.kernels import ops as _ops  # noqa: F401 (registers hopper)
+from repro_torch.models import layers as L
+from repro_torch.models.params import spec
+
+# ---------------------------------------------------------------------------
+# attn_core / mlp_core region variants
+# ---------------------------------------------------------------------------
+register_variant("attn_core", "ref")(
+    lambda q, k, v, **kw: L.chunked_attention(q, k, v, q_chunk=512,
+                                              k_chunk=1024, **kw))
+register_variant("attn_core", "offload")(
+    lambda q, k, v, **kw: L.chunked_attention(q, k, v, q_chunk=1024,
+                                              k_chunk=2048, **kw))
+
+
+@register_variant("mlp_core", "ref")
+def _mlp_ref(x, w_gate, w_up, w_down):
+    return L.swiglu(x, w_gate, w_up, w_down)
+
+
+@register_variant("mlp_core", "offload")
+def _mlp_offload(x, w_gate, w_up, w_down):
+    # fused formulation: one concatenated matmul then split (one pass over x)
+    h = x @ torch.cat([w_gate, w_up], dim=1)
+    g, u = h.chunk(2, dim=-1)
+    return (F.silu(g) * u) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Attention block
+# ---------------------------------------------------------------------------
+def attn_template(cfg: ModelConfig) -> dict:
+    d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    t = {
+        "ln": spec([d], ("embed",), "zeros"),
+        "wq": spec([d, hq * hd], ("embed", "qkv")),
+        "wk": spec([d, hkv * hd], ("embed", "kv_qkv")),
+        "wv": spec([d, hkv * hd], ("embed", "kv_qkv")),
+        "wo": spec([hq * hd, d], ("qkv", "embed"), "scaled"),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = spec([hq * hd], ("qkv",), "zeros")
+        t["bk"] = spec([hkv * hd], ("kv_qkv",), "zeros")
+        t["bv"] = spec([hkv * hd], ("kv_qkv",), "zeros")
+    return t
+
+
+def _split_heads(x, n_heads, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd).transpose(1, 2)      # [B, H, S, hd]
+
+
+def _merge_heads(x):
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def _qkv(p, h, cfg):
+    hd = cfg.resolved_head_dim
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (_split_heads(q, cfg.num_heads, hd),
+            _split_heads(k, cfg.num_kv_heads, hd),
+            _split_heads(v, cfg.num_kv_heads, hd))
+
+
+def attn_apply(p, x, *, cfg: ModelConfig, positions, impl=None, causal=True,
+               window=0, return_kv=False):
+    """Full-sequence attention block with pre-norm residual.
+    x: [B, S, D]; positions: [B, S] absolute positions.  With
+    ``return_kv`` also returns the roped k and v ([B, Hkv, S, hd])."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    q = L.apply_rope(q, positions[:, None, :], cfg.rope_theta)
+    k = L.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    # the kernels take contiguous [B, H, S, hd] tensors
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = dispatch("attn_core", impl, q, k, v, causal=causal, window=window)
+    out = _merge_heads(out) @ p["wo"]
+    res = x + out.to(x.dtype)
+    if return_kv:
+        return res, (k, v)
+    return res
+
+
+def attn_cache_template(cfg: ModelConfig, batch: int, ctx: int,
+                        window: int = 0) -> dict:
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    s = min(ctx, window) if window else ctx
+    return {
+        "k": spec([batch, hkv, s, hd], ("batch", "kv_heads", "ctx", None),
+                  "zeros"),
+        "v": spec([batch, hkv, s, hd], ("batch", "kv_heads", "ctx", None),
+                  "zeros"),
+        "slot_pos": spec([batch, s], ("batch", "ctx"), "neg_ones_i32",
+                         dtype="int32"),
+    }
+
+
+def attn_decode(p, x, cache, *, cfg: ModelConfig, pos, window=0):
+    """x: [B, 1, D]; pos: [B] absolute position of this token.  Writes the
+    token's k/v into ``cache`` in place and returns (x, cache).  The
+    attention itself is the plain ``layers.decode_attention``, as in the
+    JAX package (the ``decode_attn`` region is planned on its own)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k_new, v_new = _qkv(p, h, cfg)
+    q = L.apply_rope(q, pos[:, None, None], cfg.rope_theta)
+    k_new = L.apply_rope(k_new, pos[:, None, None], cfg.rope_theta)
+    k_c, v_c, sp = L.cache_update(cache["k"], cache["v"], cache["slot_pos"],
+                                  k_new, v_new, pos, window=window)
+    out = L.decode_attention(q, k_c, v_c, sp, pos, window=window)
+    out = _merge_heads(out) @ p["wo"]
+    return x + out.to(x.dtype), cache
+
+
+def attn_prefill_cache(k, v, *, positions, window=0, ctx=None,
+                       length=None) -> dict:
+    """The KV cache after a prefill, from the block's roped k and v
+    ([B, Hkv, S, hd]).  The JAX package recomputes k and v inside
+    ``attn_prefill_cache``; the port takes them from ``attn_apply`` (the
+    same operations on the same inputs).
+
+    ``length`` (int): only positions < length are real (bucketed prefill
+    right-pads the sequence).  Slot j then holds the newest valid position
+    p with p % size == j (the slot discipline ``cache_update`` uses at
+    decode), and unfilled slots are zeroed with slot_pos = -1 so decode
+    attention masks them."""
+    b, hkv, s, hd = k.shape
+    dev = k.device
+    size = min(ctx or s, window) if window else (ctx or s)
+    if length is not None:
+        # slot j <- newest position p < length with p = j (mod size): one
+        # formula for the full cache and the rotating window
+        j = torch.arange(size, device=dev)
+        p_j = length - 1 - torch.remainder(length - 1 - j, size)   # [size]
+        valid = p_j >= 0
+        gather = p_j.clamp(0, s - 1)
+        m = valid[None, None, :, None]
+        kc = torch.where(m, k[:, :, gather], torch.zeros((), dtype=k.dtype,
+                                                          device=dev))
+        vc = torch.where(m, v[:, :, gather], torch.zeros((), dtype=v.dtype,
+                                                          device=dev))
+        sp = torch.where(valid, p_j, -1)[None, :].expand(b, size)
+        return {"k": kc, "v": vc, "slot_pos": sp.to(torch.int32).contiguous()}
+    if window and s > size:
+        # keep the last `size` positions at slots pos % size
+        keep_pos = positions[:, -size:]                        # [B, size]
+        slots = keep_pos % size
+        kc = torch.zeros((b, hkv, size, hd), dtype=k.dtype, device=dev)
+        vc = torch.zeros((b, hkv, size, hd), dtype=v.dtype, device=dev)
+        sp = torch.full((b, size), -1, dtype=torch.int32, device=dev)
+        bi = torch.arange(b, device=dev)[:, None]
+        kc[bi, :, slots] = k[:, :, -size:].transpose(1, 2)
+        vc[bi, :, slots] = v[:, :, -size:].transpose(1, 2)
+        sp[bi, slots] = keep_pos.to(torch.int32)
+        return {"k": kc, "v": vc, "slot_pos": sp}
+    pad = size - s
+    kc = F.pad(k, (0, 0, 0, pad))
+    vc = F.pad(v, (0, 0, 0, pad))
+    sp = F.pad(positions, (0, pad), value=-1)
+    return {"k": kc, "v": vc, "slot_pos": sp.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP block
+# ---------------------------------------------------------------------------
+def mlp_template(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"ln": spec([d], ("embed",), "zeros"),
+            "w_gate": spec([d, f], ("embed", "mlp")),
+            "w_up": spec([d, f], ("embed", "mlp")),
+            "w_down": spec([f, d], ("mlp", "embed"), "scaled")}
+
+
+def mlp_apply(p, x, *, cfg: ModelConfig, impl=None):
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out = dispatch("mlp_core", impl, h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + out.to(x.dtype)

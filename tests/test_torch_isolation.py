@@ -54,8 +54,11 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def _entry_points():
     from repro_torch.apps import from_numpy, mriq, tdfir
+    from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.core.device import resolve_device
-    from repro_torch.launch import fig4_offload
+    from repro_torch.launch import fig4_offload, serve
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.offload_program import make_lm_program
     x = np.zeros((2, 8), np.complex64)
     return {
         "resolve_device": lambda: resolve_device(),
@@ -64,6 +67,11 @@ def _entry_points():
         "from_numpy": lambda: from_numpy("tdfir", [x, x]),
         "fig4_offload.main": lambda: fig4_offload.main(["--app", "mriq",
                                                         "--no-cache"]),
+        "make_lm_program": lambda: make_lm_program("mistral-nemo-12b"),
+        "make_decode_program": lambda: make_decode_program(),
+        "params_from_numpy": lambda: params_from_numpy({"w": x}),
+        "serve.main": lambda: serve.main(["--arch", "mistral-nemo-12b",
+                                          "--reduced"]),
     }
 
 

@@ -12,12 +12,15 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel).
 3. kernels — holds each kernel against its plain PyTorch version on the
-   card, with the stated tolerance, at every shape phases 4 to 7 give it
-   (the paper's full sizes, MRI-Q's bench size) and at one shape off the
-   kernel's grain (FIR: N=4000, where the default block_n 512 is clamped
-   to 500; MRI-Q: 300 x 200, ragged in both loops); times kernel, plain version and (for the FIR bank) a one-call
-   PyTorch yardstick with CUDA events; prints the bound and each kernel's
-   registers and shared memory beside the Step-3 estimate.
+   card, with the stated tolerance, at every shape phases 4 to 9 give it
+   (the paper's full sizes, MRI-Q's bench size, the six prefill buckets,
+   the planners' reduced models) and at one shape off the kernel's grain
+   (FIR: N=4000, where the default block_n 512 is clamped to 500; MRI-Q:
+   300 x 200, ragged in both loops; the scans: S=9 and D=300, no multiple
+   of a tile); times kernel, plain version and, where one PyTorch call
+   computes the same function, that call with CUDA events; prints the
+   bound and each kernel's registers and shared memory beside the Step-3
+   estimate.
 4. planner — the main path: the five-step planner on tdFIR (HPEC set 1)
    and MRI-Q (sampled at its bench size, analysed at Parboil "large"),
    strategy staged, d=4, against a temporary plan cache; a second plan is
@@ -39,6 +42,16 @@ Phases, each printed as it runs; any failure exits non-zero:
 7. decode_attn plan — plans ``make_decode_program()`` (a real Step 4
    measuring ``decode_attn=hopper``, then a cache hit);
    ``decode_attention`` must have launched in this phase.
+8. serve falcon-mamba-7b — as phase 6 for the Mamba-1 SSM family: plans
+   ``make_lm_program("falcon-mamba-7b")``, builds the full model (64
+   layers, d_inner 8,192, N=16) and serves the same mix with
+   ``ssm_scan=hopper``; ``ssm_scan`` must have launched in this phase and
+   the prefill logits under hopper must agree with ``ssm_scan=ref``.
+9. serve recurrentgemma-2b — the same for the RG-LRU / local-attention
+   hybrid (26 layers = 8 units of (RG-LRU, RG-LRU, local attention) + a
+   2-layer tail; window 2,048, 10 query heads over 1 kv head of width
+   256) with ``rglru_scan=hopper`` and ``attn_core=hopper``; ``rglru_scan``
+   and ``flash_attention`` must have launched in this phase.
 
 Every launch counter is set to 0 just before the path it belongs to runs
 and read just after it; the comparisons of phase 3 do not count.
@@ -65,21 +78,25 @@ BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
 SFU_OPS_PER_S = FP32_FLOPS_PER_S / 16
 
 ARCH = "mistral-nemo-12b"
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "recurrentgemma-2b"
 SERVE_PROMPTS = (2060, 2048, 1000, 300, 100, 9)   # buckets 2080 ... 16
 SERVE_BUCKETS = (2080, 2048, 1024, 512, 128, 16)
 SERVE_CTX = 2080
 SERVE_SLOTS = 4
 SERVE_NEW_TOKENS = 16
-# prefill logits of attn_core=hopper against attn_core=ref on the same
-# params.  The two attention paths differ only in where they round to bf16
-# (p against a 64-key tile's running max or a 1,024-key chunk's; o to
-# bf16), about one bf16 ulp of the unit-scale attention output per layer,
-# and the init's oversized output projections (std 1/sqrt(layers)) carry
-# that noise through all 40 layers to the float32 logits.  So the
-# tolerance is relative to the same noise measured in this run, between
-# two plain chunkings, attn_core=offload (1,024 x 2,048 chunks) against
-# ref: at most 3x it, and never below 0.05.  A wrong mask, head or tile
-# moves the logits by O(1).
+# prefill logits of the hopper variants against ref on the same params.
+# The two attention paths differ only in where they round to bf16 (p
+# against a 64-key tile's running max or a 1,024-key chunk's; o to bf16),
+# about one bf16 ulp of the unit-scale attention output per layer, and the
+# init's oversized output projections (std 1/sqrt(layers)) carry that
+# noise through all the layers to the float32 logits.  The scans differ in
+# where they round too: ref carries the selective scan's state in bf16 and
+# runs the recurrence as an associative scan, hopper carries float32 state
+# step by step.  So the tolerance is relative to the same noise measured in
+# this run, between two plain versions, offload (larger chunks, float32)
+# against ref: at most 3x it, and never below 0.05.  A wrong mask, head,
+# tile or time step moves the logits by O(1).
 LOGIT_NOISE_FACTOR = 3.0
 LOGIT_TOL_MIN = 0.05
 
@@ -193,6 +210,27 @@ def decode_bound_ms(b, hq, hkv, s, d, elem, flops_per_s) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ssm_bound_ms(b, s, d, n, elem) -> tuple[float, str]:
+    """Least time for the selective scan: a and bx [B,S,D,N] and c [B,S,N]
+    read once in their type, h0 read and h_final written once (float32),
+    y [B,S,D] written once; two FMAs (4 FP32 flops) per element of a."""
+    t_ops = 4.0 * b * s * d * n / FP32_FLOPS_PER_S
+    t_bytes = (elem * (2 * b * s * d * n + b * s * n + b * s * d)
+               + 4 * 2 * b * d * n) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rglru_bound_ms(b, s, d, elem) -> tuple[float, str]:
+    """Least time for the linear recurrence: a and b [B,S,D] read once,
+    h_all written once in their type, h0 and h_final once in float32; one
+    FMA (2 flops) per element."""
+    t_ops = 2.0 * b * s * d / FP32_FLOPS_PER_S
+    t_bytes = (elem * 3 * b * s * d + 4 * 2 * b * d) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -217,13 +255,16 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fir, mriq
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import ssm_scan as SS
     from repro_torch.models import factory as F
+    from repro_torch.models.lm import layer_plan
     from repro_torch.models.offload_program import make_lm_program
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving.engine import ServeEngine
     sdpa = torch.nn.functional.scaled_dot_product_attention
     counters = (fir.fir_filter_bank, mriq.mriq_compute_q, FA.flash_attention,
-                DA.decode_attention)
+                DA.decode_attention, SS.ssm_scan, RS.rglru_scan)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -366,6 +407,15 @@ def main() -> int:
                     ("planner (reduced)", 2, 4, 2, 128, 16, bf16, 0),
                     ("planner (reduced) f32", 2, 4, 2, 128, 16, f32, 0),
                     ("ragged f32 window=48", 1, 8, 2, 300, 64, f32, 48)]
+    # recurrentgemma's local attention (phase 9): head_dim 256, 10 query
+    # heads over 1 kv head, window 2,048, at every bucket; its planner's
+    # reduced model; and a ragged float32 case at head_dim 256
+    flash_cases += [(f"hybrid S={n}", 1, 10, 1, n, 256, bf16, 2048)
+                    for n in SERVE_BUCKETS]
+    flash_cases += [("hybrid planner (reduced)", 2, 4, 1, 128, 16, bf16, 32),
+                    ("ragged f32 D=256 window=48", 1, 10, 1, 300, 256, f32,
+                     48)]
+    flash256 = {}
     for label, b, hq, hkv, n, d, dt, window in flash_cases:
         q, k, v = randn(b, hq, n, d, dtype=dt), randn(b, hkv, n, d, dtype=dt), \
             randn(b, hkv, n, d, dtype=dt)
@@ -382,12 +432,36 @@ def main() -> int:
         elem = 2 if dt == bf16 else 4
         bound_ms, bound_by = flash_bound_ms(b, hq, hkv, n, d, elem, True,
                                             window, flops_rate[dt])
-        if label.startswith("serve"):
+        if label.startswith(("serve", "hybrid S=")):
             ms, ms_range = cuda_ms(torch, lambda: FA.flash_attention(
                 q, k, v, causal=True, window=window), 10)
             line += (f"; kernel {ms:.4f} ms {ms_range}, bound "
                      f"{bound_ms * 1e3:.2f} us ({bound_by})")
         print(line)
+        if label == "hybrid S=2048":
+            # the window (2,048) admits every causal key at S=2,048, so
+            # causal SDPA computes the same function
+            lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
+                         rtol=tol, atol=tol)
+            plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
+                q, k, v, causal=True, window=window), 3)
+            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True), 20)
+            est = precompile("attn_core", "hopper",
+                             variants("attn_core")["hopper"], (q, k, v))
+            print(f"  head_dim 256: kernel {ms:.4f} ms {ms_range}  plain "
+                  f"{plain_ms:.4f} ms {plain_range}  SDPA {lib_ms:.4f} ms "
+                  f"{lib_range}  bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
+                  f"{clocks()}")
+            print(f"  cudaFuncGetAttributes (block_k 64, head_dim 256): "
+                  f"{FA.kernel_attributes(64, 256)}; dynamic smem "
+                  f"{FA.smem_bytes(FA.DEFAULT_BLOCK_Q, FA.DEFAULT_BLOCK_K, d)}"
+                  f" B/block, {FA.threads(FA.DEFAULT_BLOCK_Q, d)} threads; "
+                  f"Step-3 estimate {est.resource_bytes:.0f} B/block")
+            flash256 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "library_ms": lib_ms}
         if label == "serve S=2048":
             lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
             assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
@@ -478,6 +552,89 @@ def main() -> int:
         del q, k, v, got, want
     torch.cuda.empty_cache()
 
+    # the scans of phases 8 and 9, on inputs drawn on the card (a [1, 2,080,
+    # 8,192, 16] normal drawn on the host would take seconds).  Decays in
+    # (0.5, 1), the slow end of the model's exp(dt * A).  bf16: kernel and
+    # plain version read the same bf16 inputs and carry the same float32
+    # state, so they differ in the order of the FMA and of the sum over N,
+    # then by the rounding of y (h_all) to bf16, one ulp (2^-8 relative):
+    # rtol = atol = 2e-2.  float32, and the float32 final states: 1e-4
+    # (ssm) and 1e-5 (rglru), the tolerances of tests/test_kernels.py.
+    gd = torch.Generator(device=dev).manual_seed(1)
+
+    def dnormal(*shape, dtype):
+        return torch.randn(shape, generator=gd, device=dev).to(dtype)
+
+    def decays(*shape, dtype):
+        return (torch.rand(shape, generator=gd, device=dev) * 0.5 + 0.5).to(
+            dtype)
+
+    scan_tols = {"ssm_scan": {bf16: 2e-2, f32: 1e-4},
+                 "rglru_scan": {bf16: 2e-2, f32: 1e-5}}
+    scan_cases = [("ssm_scan", f"serve S={n}", (1, n, 8192, 16), bf16)
+                  for n in SERVE_BUCKETS]
+    scan_cases += [("ssm_scan", "planner (reduced)", (2, 128, 128, 8), bf16),
+                   ("ssm_scan", "off-grain S=9 D=300", (1, 9, 300, 16), bf16),
+                   ("ssm_scan", "ragged f32", (2, 300, 300, 16), f32)]
+    scan_cases += [("rglru_scan", f"serve S={n}", (1, n, 2560), bf16)
+                   for n in SERVE_BUCKETS]
+    scan_cases += [("rglru_scan", "planner (reduced)", (2, 128, 64), bf16),
+                   ("rglru_scan", "off-grain S=9 D=300", (1, 9, 300), bf16),
+                   ("rglru_scan", "ragged f32", (2, 300, 300), f32)]
+    for name, label, shape, dt in scan_cases:
+        if name == "ssm_scan":
+            b, n, d, ns = shape
+            args = (decays(*shape, dtype=dt), dnormal(*shape, dtype=dt),
+                    dnormal(b, n, ns, dtype=dt), dnormal(b, d, ns, dtype=f32))
+            kernel, plain, mod = SS.ssm_scan, SS.ssm_scan_plain, SS
+            bound_ms, bound_by = ssm_bound_ms(b, n, d, ns, args[0].element_size())
+            attrs = SS.kernel_attributes(ns, SS.DEFAULT_TIME_CHUNK, dt == bf16)
+        else:
+            b, n, d = shape
+            args = (decays(*shape, dtype=dt), dnormal(*shape, dtype=dt),
+                    dnormal(b, d, dtype=f32))
+            kernel, plain, mod = RS.rglru_scan, RS.rglru_scan_plain, RS
+            bound_ms, bound_by = rglru_bound_ms(b, n, d, args[0].element_size())
+            attrs = RS.kernel_attributes(RS.DEFAULT_TIME_CHUNK, dt == bf16)
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        tol = scan_tols[name][dt]
+        assert_close(torch, got[0].float(), want[0].float(), f"{name} {label}",
+                     rtol=tol, atol=tol)
+        ftol = scan_tols[name][f32]
+        assert_close(torch, got[1], want[1], f"{name} {label} final state",
+                     rtol=ftol, atol=ftol)
+        err = max_abs_err(torch, got[0].float(), want[0].float())
+        line = (f"{name} {label} {list(shape)} {str(dt).removeprefix('torch.')}"
+                f": max_abs_err={err:.3e} (tol rtol=atol={tol}), final state "
+                f"{max_abs_err(torch, got[1], want[1]):.3e} (tol {ftol})")
+        if label.startswith("serve"):
+            ms, ms_range = cuda_ms(torch, lambda: kernel(*args), 20)
+            line += (f"; kernel {ms:.4f} ms {ms_range}, bound "
+                     f"{bound_ms * 1e3:.2f} us ({bound_by})")
+        print(line)
+        if label == f"serve S={SERVE_BUCKETS[0]}":
+            plain_ms, plain_range = cuda_ms(torch, lambda: plain(*args), 1)
+            est = precompile(name, "hopper", variants(name)["hopper"], args)
+            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+                  f"{plain_range}  library: none  bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
+                  f"{clocks()}")
+            print(f"  cudaFuncGetAttributes (time_chunk "
+                  f"{mod.DEFAULT_TIME_CHUNK}): {attrs}; Step-3 estimate "
+                  f"{est.resource_bytes:.0f} B/block")
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": {"ssm_scan": "src/repro/kernels/ssm_scan.py:51",
+                             "rglru_scan": "src/repro/kernels/rglru_scan.py:45"
+                             }[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del args, got, want
+    torch.cuda.empty_cache()
+
     # ---- 4. planner (main path; launch counters zeroed here) ------------
     phase("4. planner")
     for counter in counters:
@@ -548,110 +705,130 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
         rows[name]["launches"] = count
 
+    # ---- 6, 8, 9. serve a full-width model through the planner ----------
+    def serve_arch(arch: str, hopper: tuple[str, ...]) -> dict:
+        """Plan ``make_lm_program(arch)`` (then a cache hit), draw the full
+        model on the card, serve the request mix with the ``hopper``
+        regions over the planned pattern, and hold each request's prefill
+        logits under hopper against ref.  Every launch counter is zeroed
+        first; returns the counts of this serving path."""
+        for counter in counters:
+            counter.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = PlanCache(Path(tmp) / "plans.json")
+            prog = make_lm_program(arch, device=dev)
+            t0 = time.perf_counter()
+            report = AutoOffloader(cfg).plan(prog, cache=cache)
+            print(report.summary())
+            print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
+                  f"{len(report.measurements)} measurements")
+            if not (report.baseline.ok and report.measurements):
+                raise AssertionError(f"{prog.name}: unsound plan")
+            again = AutoOffloader(cfg).plan(prog, cache=cache)
+            if not again.from_cache or again.measurements:
+                raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
+            print(f"re-plan: served from plan cache with "
+                  f"{len(again.measurements)} measurements")
+        impl = Impl({**report.best_impl(), **{r: "hopper" for r in hopper}})
+        ncfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        leaves = tree_leaves(params)
+        unit, reps, tail = layer_plan(ncfg)
+        print(f"{arch}: {ncfg.num_layers} layers (full depth: {reps} x "
+              f"{'/'.join(unit)}{' + ' + '/'.join(tail) if tail else ''}), "
+              f"d_model {ncfg.d_model}, heads {ncfg.num_heads}/"
+              f"{ncfg.num_kv_heads} x {ncfg.resolved_head_dim if ncfg.num_heads else 0}"
+              f", d_ff {ncfg.d_ff}, vocab {ncfg.vocab_size}"
+              + (f", d_inner {ncfg.d_inner}, N {ncfg.ssm_state}"
+                 if ncfg.family == "ssm" else "")
+              + (f", d_rnn {ncfg.rglru_d_rnn}, window {ncfg.attn_window}"
+                 if ncfg.family == "hybrid" else "")
+              + f": {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
+              f"{sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
+              f" GiB, drawn on the card in {time.perf_counter() - t0:.1f} s")
+        engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                             seed=0, impl=impl)
+        prompts = [F.synthetic_request(ncfg, n, seed=100 + i)[0]
+                   for i, n in enumerate(SERVE_PROMPTS)]
+        for prompt in prompts:
+            engine.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
+        t0 = time.perf_counter()
+        done = engine.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"launches while serving: {launches}")
+        st = engine.stats()
+        for req in done:
+            print(f"req {req.rid}: prompt {req.tokens.size:4d} (bucket "
+                  f"{req.bucket:4d}) | wait {req.queue_wait_s * 1e3:8.1f} ms | ttft "
+                  f"{req.ttft_s * 1e3:8.1f} ms | decode {req.decode_tps:7.1f} tok/s "
+                  f"| {len(req.generated)} tokens")
+        print(f"served {st['requests_finished']} requests / "
+              f"{st['generated_tokens']} tokens in {wall:.2f} s "
+              f"({st['generated_tokens'] / wall:.1f} tok/s aggregate) with "
+              f"{impl.describe()}; TTFT mean {st['ttft_s_mean'] * 1e3:.1f} ms, "
+              f"p50 {st['ttft_s_p50'] * 1e3:.1f} ms; decode tok/s per request mean "
+              f"{st['decode_tps_mean']:.1f}; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
+        if (len(done) != len(SERVE_PROMPTS)
+                or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
+                or tuple(r.bucket for r in done) != SERVE_BUCKETS):
+            raise AssertionError(f"serve {arch}: {len(done)} finished, tokens "
+                                 f"{[len(r.generated) for r in done]}, buckets "
+                                 f"{[r.bucket for r in done]}")
+
+        # the prefill logits of each request under hopper against ref (the
+        # engine's own prefill entry point), with offload as the noise floor
+        # of two plain versions
+        def prefill_logits(variant: str, prompt):
+            step = F.make_bucketed_prefill_step(
+                ncfg, impl=Impl({**impl, **{r: variant for r in hopper}}),
+                ctx=SERVE_CTX)
+            n = prompt.size
+            padded = np.zeros((1, F.prefill_bucket(n, SERVE_CTX)), np.int32)
+            padded[0, :n] = prompt
+            logits, _ = step(params, {"tokens": torch.from_numpy(padded).to(dev)},
+                             n)
+            return logits[0, -1]
+
+        worst = floor = 0.0
+        agree = 0
+        for prompt in prompts:
+            hop, ref = prefill_logits("hopper", prompt), prefill_logits("ref", prompt)
+            off = prefill_logits("offload", prompt)
+            if not bool(torch.isfinite(hop).all()):
+                raise AssertionError(f"serve {arch}: non-finite prefill logits")
+            diff = float((hop - ref).abs().max())
+            worst = max(worst, diff)
+            floor = max(floor, float((off - ref).abs().max()))
+            agree += int(hop.argmax() == ref.argmax())
+            print(f"  prompt {prompt.size:4d}: max |logits(hopper) - logits(ref)| "
+                  f"= {diff:.3e}, max |logits(hopper) - logits(offload)| = "
+                  f"{float((hop - off).abs().max()):.3e}, max |logits(ref)| = "
+                  f"{float(ref.abs().max()):.3f}")
+        tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
+        print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; noise "
+              f"floor (offload vs ref) {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} "
+              f"x floor, {LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
+              f"{agree}/{len(prompts)} prompts")
+        if worst > tol:
+            raise AssertionError(f"serve {arch}: hopper and ref prefill logits "
+                                 f"differ by {worst:.3e} > {tol:.3e}")
+        del engine, params, leaves
+        torch.cuda.empty_cache()
+        return launches
+
     # ---- 6. serve full-width Mistral-NeMo-12B (slice-2 main path) -------
     phase("6. serve")
-    for counter in counters:
-        counter.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        cache = PlanCache(Path(tmp) / "plans.json")
-        prog = make_lm_program(ARCH, device=dev)
-        t0 = time.perf_counter()
-        report = AutoOffloader(cfg).plan(prog, cache=cache)
-        print(report.summary())
-        print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
-              f"{len(report.measurements)} measurements")
-        if not (report.baseline.ok and report.measurements):
-            raise AssertionError(f"{prog.name}: unsound plan")
-        again = AutoOffloader(cfg).plan(prog, cache=cache)
-        if not again.from_cache or again.measurements:
-            raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
-        print(f"re-plan: served from plan cache with "
-              f"{len(again.measurements)} measurements")
-    impl = Impl({**report.best_impl(), "attn_core": "hopper"})
-    ncfg = get_config(ARCH)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    leaves = tree_leaves(params)
-    print(f"{ARCH}: {ncfg.num_layers} layers (full depth), d_model "
-          f"{ncfg.d_model}, heads {ncfg.num_heads}/{ncfg.num_kv_heads} x "
-          f"{ncfg.resolved_head_dim}, d_ff {ncfg.d_ff}, vocab "
-          f"{ncfg.vocab_size}: {sum(t.numel() for t in leaves) / 1e9:.3f} B "
-          f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
-          f" GiB bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
-    engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
-                         seed=0, impl=impl)
-    prompts = [F.synthetic_request(ncfg, n, seed=100 + i)[0]
-               for i, n in enumerate(SERVE_PROMPTS)]
-    for prompt in prompts:
-        engine.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
-    t0 = time.perf_counter()
-    done = engine.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    serve_launches = {c.__name__: c.launches for c in counters}
-    print(f"launches while serving: {serve_launches}")
-    st = engine.stats()
-    for req in done:
-        print(f"req {req.rid}: prompt {req.tokens.size:4d} (bucket "
-              f"{req.bucket:4d}) | wait {req.queue_wait_s * 1e3:8.1f} ms | ttft "
-              f"{req.ttft_s * 1e3:8.1f} ms | decode {req.decode_tps:7.1f} tok/s "
-              f"| {len(req.generated)} tokens")
-    print(f"served {st['requests_finished']} requests / "
-          f"{st['generated_tokens']} tokens in {wall:.2f} s "
-          f"({st['generated_tokens'] / wall:.1f} tok/s aggregate) with "
-          f"{impl.describe()}; TTFT mean {st['ttft_s_mean'] * 1e3:.1f} ms, "
-          f"p50 {st['ttft_s_p50'] * 1e3:.1f} ms; decode tok/s per request mean "
-          f"{st['decode_tps_mean']:.1f}; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
-    if (len(done) != len(SERVE_PROMPTS)
-            or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
-            or tuple(r.bucket for r in done) != SERVE_BUCKETS):
-        raise AssertionError(f"serve: {len(done)} finished, tokens "
-                             f"{[len(r.generated) for r in done]}, buckets "
-                             f"{[r.bucket for r in done]}")
+    serve_launches = serve_arch(ARCH, ("attn_core",))
     if serve_launches["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched on the main "
                              "path")
-
-    # the prefill logits of each request under hopper against ref (the
-    # engine's own prefill entry point), with offload as the noise floor of
-    # two plain chunkings
-    def prefill_logits(variant: str, prompt):
-        step = F.make_bucketed_prefill_step(
-            ncfg, impl=Impl({**impl, "attn_core": variant}), ctx=SERVE_CTX)
-        n = prompt.size
-        padded = np.zeros((1, F.prefill_bucket(n, SERVE_CTX)), np.int32)
-        padded[0, :n] = prompt
-        logits, _ = step(params, {"tokens": torch.from_numpy(padded).to(dev)},
-                         n)
-        return logits[0, -1]
-
-    worst = floor = 0.0
-    agree = 0
-    for prompt in prompts:
-        hop, ref = prefill_logits("hopper", prompt), prefill_logits("ref", prompt)
-        off = prefill_logits("offload", prompt)
-        if not bool(torch.isfinite(hop).all()):
-            raise AssertionError("serve: non-finite prefill logits")
-        diff = float((hop - ref).abs().max())
-        worst = max(worst, diff)
-        floor = max(floor, float((off - ref).abs().max()))
-        agree += int(hop.argmax() == ref.argmax())
-        print(f"  prompt {prompt.size:4d}: max |logits(hopper) - logits(ref)| "
-              f"= {diff:.3e}, max |logits(ref)| = {float(ref.abs().max()):.3f}")
-    tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
-    print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; noise "
-          f"floor (offload vs ref) {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} "
-          f"x floor, {LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
-          f"{agree}/{len(prompts)} prompts")
-    if worst > tol:
-        raise AssertionError(f"serve: hopper and ref prefill logits differ by "
-                             f"{worst:.3e} > {tol:.3e}")
-    del engine, params, leaves
-    torch.cuda.empty_cache()
 
     # ---- 7. plan the decode_attn program ------------------------------
     phase("7. decode_attn plan")
@@ -675,19 +852,42 @@ def main() -> int:
     if decode_launches["decode_attention"] <= 0:
         raise AssertionError("decode_attention was not launched on the main "
                              "path")
-    rows["flash_attention"]["launches"] = serve_launches["flash_attention"]
-    rows["decode_attention"]["launches"] = decode_launches["decode_attention"]
 
-    print("kernels: fir_filter_bank ported (cuda), mriq_compute_q ported "
-          "(cuda), flash_attention ported (cuda), decode_attention ported "
-          "(cuda); to port: rmsnorm, ssm_scan, rglru_scan")
+    # ---- 8. serve full-width falcon-mamba-7b (slice-3 main path) --------
+    phase("8. serve falcon-mamba-7b")
+    ssm_launches = serve_arch(SSM_ARCH, ("ssm_scan",))
+    if ssm_launches["ssm_scan"] <= 0:
+        raise AssertionError("ssm_scan was not launched on the main path")
+
+    # ---- 9. serve full-width recurrentgemma-2b (slice-3 main path) ------
+    phase("9. serve recurrentgemma-2b")
+    hybrid_launches = serve_arch(HYBRID_ARCH, ("rglru_scan", "attn_core"))
+    for name in ("rglru_scan", "flash_attention"):
+        if hybrid_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # flash serves two main paths: Mistral's (head_dim 128) and
+    # recurrentgemma's local attention (head_dim 256)
+    rows["flash_attention"]["launches"] = (serve_launches["flash_attention"]
+                                           + hybrid_launches["flash_attention"])
+    rows["decode_attention"]["launches"] = decode_launches["decode_attention"]
+    rows["ssm_scan"]["launches"] = ssm_launches["ssm_scan"]
+    rows["rglru_scan"]["launches"] = hybrid_launches["rglru_scan"]
+    print(f"flash_attention launches: phase 6 {serve_launches['flash_attention']}"
+          f" (head_dim 128), phase 9 {hybrid_launches['flash_attention']} "
+          f"(head_dim 256); at head_dim 256 [1, 10/1, 2,048, 256] bf16 window "
+          f"2,048: {json.dumps(flash256)}")
+
+    names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
+             "decode_attention", "ssm_scan", "rglru_scan")
+    print("kernels: " + ", ".join(f"{n} ported (cuda)" for n in names)
+          + "; to port: rmsnorm")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in ("name", "route", "source", "replaces",
                                     "launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
-        for name in ("fir_filter_bank", "mriq_compute_q", "flash_attention",
-                     "decode_attention")]}))
+        for name in names]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

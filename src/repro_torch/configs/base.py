@@ -5,9 +5,10 @@ Mirrors the JAX package's ``configs/base.py``: one frozen
 package (``configs/<arch>.py``), and :meth:`ModelConfig.reduced`, the tiny
 same-family config the CPU tests and the planner's measurements use.
 
-Only dense decoders are ported so far (slice 2 of the port): the registry
-loads the dense configs, and a layer kind other than attention raises in
-``models/lm.py`` with the slice that brings it.
+The registry loads the configs of the architectures the port can build:
+the dense decoder (slice 2) and the two recurrent families, Mamba-1 SSM
+and the RG-LRU / local-attention hybrid (slice 3).  MoE, frontends and
+encoders raise in ``models/lm.py`` with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -82,6 +83,15 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     @property
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
     def n_front(self) -> int:
         """Frontend tokens prepended to the decoder sequence (siglip patch
         embeddings; audio frames feed the encoder instead, not the prefix)."""
@@ -135,10 +145,12 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
-# the architectures the port can build so far (dense decoders); the JAX
-# package's other configs arrive with the slices that port their blocks
+# the architectures the port can build so far; the JAX package's other
+# configs arrive with the slices that port their blocks
 ARCH_IDS = (
+    "recurrentgemma-2b",
     "mistral-nemo-12b",
+    "falcon-mamba-7b",
 )
 
 _REGISTRY: dict[str, ModelConfig] = {}

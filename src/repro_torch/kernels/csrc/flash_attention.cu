@@ -32,12 +32,17 @@
 // * S need not be a multiple of any tile: the last query tile and the
 //   last kv tile are ragged, loaded as zeros and masked (keys j >= S get
 //   NEG_INF; rows i >= S are not stored).
-// * each thread owns 4 query rows (ty + TY * r) and BK / 8 keys
-//   (tx + 8 * c) of the score tile, then the same 4 rows and D / 8 output
-//   columns (tx + 8 * c) of the accumulator.  The 8 threads of a row group
-//   are neighbouring lanes, so row max and row sum are 3 shuffles.  Rows
-//   of q, k and v in shared memory are D + 4 floats apart, which keeps
-//   float4 loads aligned and puts neighbouring rows on different banks.
+// * each thread owns 4 query rows (ty + TY * r) and BK / TX keys
+//   (tx + TX * c) of the score tile, then the same 4 rows and D / TX output
+//   columns (tx + TX * c) of the accumulator.  TX = 8 threads share a row
+//   group up to D = 128, and TX = 16 at D = 256, so each thread still holds
+//   4 x 16 accumulators there (4 x 32 would spill: at D = 128 the kernel
+//   already takes 222-254 registers); a block then has 4 * block_q threads
+//   instead of 2 * block_q, and block_q <= 64.  The TX threads of a row
+//   group are neighbouring lanes, so row max and row sum are log2(TX)
+//   shuffles.  Rows of q, k and v in shared memory are D + 4 floats apart,
+//   which keeps float4 loads aligned and puts neighbouring rows on
+//   different banks.
 // * precision as the TPU kernel: q is scaled in float32, QK^T accumulates
 //   in float32, p is rounded to v's type before P.V (bf16 inputs), the sum
 //   l uses the unrounded p, and o = acc / max(l, 1e-30) in q's type.
@@ -49,7 +54,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int ROWS = 4;     // query rows per thread
-constexpr int TX = 8;       // threads per row group
 constexpr int PAD = 4;          // floats of padding per shared-memory row
 constexpr int LOAD_BATCH = 8;   // 16-byte loads in flight per thread
 constexpr int MAX_THREADS = 256;
@@ -119,16 +123,21 @@ __device__ __forceinline__ void load_rows(float* dst, const void* src,
   }
 }
 
+// threads per row group at head width D
+__host__ __device__ constexpr int threads_per_row(int d) { return d >= 256 ? 16 : 8; }
+
+template <int TX>
 __device__ __forceinline__ float row_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+#pragma unroll
+  for (int o = 1; o < TX; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
+template <int TX>
 __device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+#pragma unroll
+  for (int o = 1; o < TX; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 template <int BK, int D>
@@ -137,6 +146,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
              const void* __restrict__ v, void* __restrict__ o, int S, int Hq,
              int Hkv, int block_q, int causal, int window, float scale,
              int bf16) {
+  constexpr int TX = threads_per_row(D);
   constexpr int LD = D + PAD;
   constexpr int LDP = BK + 1;
   constexpr int CK = BK / TX;     // keys per thread
@@ -216,7 +226,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
         s[i][c] = ok ? s[i][c] : NEG_INF;
         mt = fmaxf(mt, s[i][c]);
       }
-      const float mn = fmaxf(m[i], row_max(mt));
+      const float mn = fmaxf(m[i], row_max<TX>(mt));
       const float alpha = expf(m[i] - mn);
       float lt = 0.f;
 #pragma unroll
@@ -226,7 +236,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
         ps[row * LDP + tx + TX * c] =
             bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
       }
-      l[i] = l[i] * alpha + row_sum(lt);
+      l[i] = l[i] * alpha + row_sum<TX>(lt);
       m[i] = mn;
 #pragma unroll
       for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
@@ -276,6 +286,9 @@ template <int BK, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int block_q, int causal, int window,
            float scale, int bf16, cudaStream_t stream) {
+  const int threads = block_q / ROWS * threads_per_row(D);
+  if (block_q % ROWS != 0 || threads % 32 != 0 || threads > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(block_q, BK, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -284,7 +297,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((S + block_q - 1) / block_q, B * Hq);
-  flash_kernel<BK, D><<<grid, 2 * block_q, smem, stream>>>(
+  flash_kernel<BK, D><<<grid, threads, smem, stream>>>(
       q, k, v, o, S, Hq, Hkv, block_q, causal, window, scale, bf16);
   return static_cast<int>(cudaGetLastError());
 }
@@ -298,6 +311,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
     case 32: return launch<BK, 32>(q, k, v, o, B, Hq, Hkv, S, block_q, causal, window, scale, bf16, s);
     case 64: return launch<BK, 64>(q, k, v, o, B, Hq, Hkv, S, block_q, causal, window, scale, bf16, s);
     case 128: return launch<BK, 128>(q, k, v, o, B, Hq, Hkv, S, block_q, causal, window, scale, bf16, s);
+    case 256: return launch<BK, 256>(q, k, v, o, B, Hq, Hkv, S, block_q, causal, window, scale, bf16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -309,6 +323,7 @@ cudaError_t attributes_d(int d, cudaFuncAttributes* a) {
     case 32: return cudaFuncGetAttributes(a, flash_kernel<BK, 32>);
     case 64: return cudaFuncGetAttributes(a, flash_kernel<BK, 64>);
     case 128: return cudaFuncGetAttributes(a, flash_kernel<BK, 128>);
+    case 256: return cudaFuncGetAttributes(a, flash_kernel<BK, 256>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -325,13 +340,12 @@ long long flash_attention_smem_bytes(int block_q, int block_k, int d) {
 
 // q, o: contiguous [B, Hq, S, D]; k, v: contiguous [B, Hkv, S, D]; all of
 // one type (bf16 when bf16 != 0, else float32), 16-byte aligned.
-// block_q in {32, 64, 128}; block_k in {32, 64, 128}; d in {16, 32, 64, 128}.
+// block_q in {32, 64, 128} (at most 64 at d = 256: 4 * block_q threads);
+// block_k in {32, 64, 128}; d in {16, 32, 64, 128, 256}.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Hq, int Hkv, int S, int d,
                            int block_q, int block_k, int causal, int window,
                            float scale, int bf16, void* stream) {
-  if (block_q % (4 * 8) != 0 || 2 * block_q > MAX_THREADS)
-    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (block_k) {
     case 32: return launch_d<32>(d, q, k, v, o, B, Hq, Hkv, S, block_q, causal, window, scale, bf16, s);

@@ -19,9 +19,10 @@ import torch
 from repro_torch.kernels import SMEM_PER_BLOCK, _build
 
 NEG_INF = -1e30
-BLOCK_QS = (32, 64, 128)         # query rows per block (2 * block_q threads)
+BLOCK_QS = (32, 64, 128)         # query rows per block (see threads())
 BLOCK_KS = (32, 64, 128)         # keys per shared-memory tile
-HEAD_DIMS = (16, 32, 64, 128)    # head widths the source instantiates
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head widths the source instantiates
+MAX_THREADS = 256
 DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_K = 64
 _PAD = 4                         # floats of padding per shared-memory row
@@ -32,6 +33,20 @@ def smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
     k and v tiles [block_k, D + 4], probabilities [block_q, block_k + 1]."""
     ld = head_dim + _PAD
     return 4 * (block_q * ld + 2 * block_k * ld + block_q * (block_k + 1))
+
+
+def threads(block_q: int, head_dim: int) -> int:
+    """Threads of one block: 4 query rows per thread, 8 threads per row
+    group (16 at head_dim 256, where 8 would need 128 accumulators each)."""
+    return block_q // 4 * (16 if head_dim >= 256 else 8)
+
+
+def fits(block_q: int, block_k: int, head_dim: int) -> bool:
+    """Whether the source instantiates head_dim and the block fits Hopper's
+    shared memory and the kernel's thread limit."""
+    return (head_dim in HEAD_DIMS
+            and threads(block_q, head_dim) <= MAX_THREADS
+            and smem_bytes(block_q, block_k, head_dim) <= SMEM_PER_BLOCK)
 
 
 def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -125,11 +140,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if d not in HEAD_DIMS or smem_bytes(block_q, block_k, d) > SMEM_PER_BLOCK:
+    if not fits(block_q, block_k, d):
         raise ValueError(f"flash_attention: head_dim {d} with block_q="
                          f"{block_q}, block_k={block_k} exceeds the kernel's "
-                         f"limits (head_dim in {HEAD_DIMS}, shared memory "
-                         f"<= {SMEM_PER_BLOCK} B)")
+                         f"limits (head_dim in {HEAD_DIMS}, at most "
+                         f"{MAX_THREADS} threads, shared memory <= "
+                         f"{SMEM_PER_BLOCK} B)")
     if b * hq > 65_535 or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: B * Hq > 65,535 or a pointer not "
                          "16-byte aligned")

@@ -1,6 +1,6 @@
 """Registration of the model regions' ``hopper`` variants (the hand-written
 CUDA kernels) and of the ``decode_attn`` region — the port of the JAX
-package's ``kernels/ops.py`` for the attention kernels.
+package's ``kernels/ops.py`` for the attention and scan kernels.
 
 Each ``hopper`` variant declares a :class:`TuningSpace` and a Step-3
 shared-memory estimator.  The tile genes differ from the JAX package's:
@@ -9,7 +9,10 @@ were sized for 16 MiB of TPU VMEM, where a 1024 x 128 bf16 K-plus-V tile
 (512 KB) fits; no Hopper block can hold that.  Here the axes are the tile
 sizes the CUDA sources instantiate, and the validity predicate admits a
 point only when its block fits the 232,448 bytes of shared memory a
-Hopper block may use.
+Hopper block may use.  The scans' axes are likewise the CUDA sources'
+instances (the JAX ``block_c`` / ``time_chunk`` genes had to divide D and
+S; the Hopper kernels mask their ragged edges, so no divisibility rule is
+needed).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.core.resources import register_smem_estimator
 from repro_torch.kernels import SMEM_PER_BLOCK
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rglru_scan as RS
+from repro_torch.kernels import ssm_scan as SS
 
 
 def _dim(args, idx: int, axis: int):
@@ -40,8 +45,7 @@ def _attn_tile_ok(p, args) -> bool:
     d = _dim(args, 0, 3)
     if d is None:
         return True
-    return (d in FA.HEAD_DIMS
-            and FA.smem_bytes(p["block_q"], p["block_k"], d) <= SMEM_PER_BLOCK)
+    return FA.fits(p["block_q"], p["block_k"], d)
 
 
 @register_variant("attn_core", "hopper", tuning=TuningSpace(
@@ -103,3 +107,46 @@ def decode_attn_hopper(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
 @register_smem_estimator("decode_attn", "hopper")
 def _decode_hopper_smem(q, k_cache, *_, block_k=DA.DEFAULT_BLOCK_K, **__):
     return DA.smem_bytes(q.shape[1] // k_cache.shape[1], q.shape[-1], block_k)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+def _ssm_tile_ok(p, args) -> bool:
+    # whole warps of at most 256 threads (block_c * N); no shared memory
+    n = _dim(args, 0, 3)
+    return n is None or SS.fits(p["block_c"], p["time_chunk"], n)
+
+
+@register_variant("ssm_scan", "hopper", tuning=TuningSpace(
+    axes={"block_c": SS.BLOCK_CS, "time_chunk": SS.TIME_CHUNKS},
+    defaults={"block_c": SS.DEFAULT_BLOCK_C,
+              "time_chunk": SS.DEFAULT_TIME_CHUNK},
+    validity=_ssm_tile_ok))
+def ssm_scan_hopper(a, bx, c, h0, *, block_c=SS.DEFAULT_BLOCK_C,
+                    time_chunk=SS.DEFAULT_TIME_CHUNK):
+    return SS.ssm_scan(a, bx, c, h0, block_c=block_c, time_chunk=time_chunk)
+
+
+@register_smem_estimator("ssm_scan", "hopper")
+def _ssm_hopper_smem(*_, **__):
+    return 0        # the kernel keeps its chunks in registers
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan: RG-LRU linear recurrence
+# ---------------------------------------------------------------------------
+@register_variant("rglru_scan", "hopper", tuning=TuningSpace(
+    axes={"block_c": RS.BLOCK_CS, "time_chunk": RS.TIME_CHUNKS},
+    defaults={"block_c": RS.DEFAULT_BLOCK_C,
+              "time_chunk": RS.DEFAULT_TIME_CHUNK}))
+def rglru_scan_hopper(a, b, h0, *, block_c=RS.DEFAULT_BLOCK_C,
+                      time_chunk=RS.DEFAULT_TIME_CHUNK):
+    # every point launches (one thread per channel, registers only), so the
+    # space needs no validity predicate
+    return RS.rglru_scan(a, b, h0, block_c=block_c, time_chunk=time_chunk)
+
+
+@register_smem_estimator("rglru_scan", "hopper")
+def _rglru_hopper_smem(*_, **__):
+    return 0        # the kernel keeps its chunks in registers

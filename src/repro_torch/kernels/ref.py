@@ -108,3 +108,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU / SSM scans (sequential oracles)
+# ---------------------------------------------------------------------------
+def rglru_scan_seq(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """Step-by-step linear recurrence h_t = a_t * h_{t-1} + b_t.
+    a, b: [B, S, D]; h0: [B, D].  Returns (h_all [B, S, D], h_final)."""
+    steps = []
+    h = h0
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        steps.append(h)
+    return torch.stack(steps, dim=1), h
+
+
+def ssm_scan_seq(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor):
+    """Step-by-step selective scan h_t = a_t * h_{t-1} + bx_t,
+    y_t = h_t . c_t.  a, bx: [B, S, D, N]; c: [B, S, N]; h0: [B, D, N].
+    Returns (y [B, S, D], h_final [B, D, N])."""
+    ys = []
+    h = h0
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1), h

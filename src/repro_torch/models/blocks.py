@@ -1,15 +1,17 @@
 """Per-layer block templates and apply functions — the port of the JAX
-package's ``models/blocks.py`` for dense decoders: attention (full and
-sliding-window, GQA) and the SwiGLU MLP.
+package's ``models/blocks.py`` for decoders: attention (full and
+sliding-window, GQA), the SwiGLU MLP, the Mamba-1 SSM block and the RG-LRU
+block.
 
 Each block kind provides ``<kind>_template(cfg)`` (a ParamSpec tree, one
-layer, unstacked), ``<kind>_apply`` (full sequence) and, for attention,
-``attn_decode`` (one token against the cache) and
-``attn_cache_template``.  Blocks route their hot loops through
+layer, unstacked), ``<kind>_apply`` (full sequence) and, for the kinds
+with a cache, ``<kind>_decode`` (one token against the cache) and
+``<kind>_cache_template``.  Decode writes the cache IN PLACE and returns
+it.  Blocks route their hot loops through
 :func:`repro_torch.core.regions.dispatch`, so the planner can swap
 implementations.  The JAX sharding constraints have no counterpart on one
-card; the MoE, SSM, RG-LRU, gelu-MLP and conv-stem blocks come with slice 3
-of the port.
+card; the MoE, gelu-MLP and conv-stem blocks come with the slices that
+port MoE and the frontends.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regions import dispatch, register_variant
 from repro_torch.kernels import ops as _ops  # noqa: F401 (registers hopper)
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SS
 from repro_torch.models.params import spec
 
 # ---------------------------------------------------------------------------
@@ -202,3 +206,101 @@ def mlp_apply(p, x, *, cfg: ModelConfig, impl=None):
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     out = dispatch("mlp_core", impl, h, p["w_gate"], p["w_up"], p["w_down"])
     return x + out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (SSM) block
+# ---------------------------------------------------------------------------
+def ssm_template(cfg: ModelConfig) -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, k = cfg.resolved_dt_rank, cfg.ssm_conv
+    return {
+        "ln": spec([d], ("embed",), "zeros"),
+        "w_in": spec([d, 2 * di], ("embed", "inner2")),
+        "conv_w": spec([k, di], (None, "inner"), "normal", scale=0.3),
+        "w_dbc": spec([di, dtr + 2 * n], ("inner", None)),
+        "w_dt": spec([dtr, di], (None, "inner")),
+        "dt_bias": spec([di], ("inner",), "zeros"),
+        "a_log": spec([di, n], ("inner", None), "a_log", dtype="float32"),
+        "d_skip": spec([di], ("inner",), "ones"),
+        "w_out": spec([di, d], ("inner", "embed"), "scaled"),
+    }
+
+
+def ssm_cache_template(cfg: ModelConfig, batch: int) -> dict:
+    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "conv": spec([batch, k - 1, di], ("batch", None, "inner"), "zeros"),
+        "h": spec([batch, di, n], ("batch", "inner", None), "zeros",
+                  dtype="float32"),
+    }
+
+
+def ssm_apply(p, x, *, cfg: ModelConfig, impl=None, state=None, length=None):
+    """Returns (x, state after the sequence)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_state = SS.mamba_block(p, h, cfg=cfg, impl=impl, state=state,
+                                    length=length)
+    return x + out, new_state
+
+
+def _write_state(cache: dict, new_state: dict) -> dict:
+    for name, dst in cache.items():
+        dst.copy_(new_state[name])
+    return cache
+
+
+def ssm_decode(p, x, cache, *, cfg: ModelConfig, impl=None):
+    """x: [B, 1, D]; writes the new conv and h state into ``cache`` in
+    place and returns (x, cache)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_state = SS.mamba_decode_step(p, h, cache, cfg=cfg, impl=impl)
+    return x + out, _write_state(cache, new_state)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block
+# ---------------------------------------------------------------------------
+def rglru_template(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    dr = cfg.rglru_d_rnn or d
+    g = 8 if dr % 8 == 0 else 1
+    k = cfg.ssm_conv
+    return {
+        "ln": spec([d], ("embed",), "zeros"),
+        "w_branch": spec([d, dr], ("embed", "rnn")),
+        "w_gate": spec([d, dr], ("embed", "rnn")),
+        "conv_w": spec([k, dr], (None, "rnn"), "normal", scale=0.3),
+        "w_a": spec([g, dr // g, dr // g], (None, None, None), "normal",
+                    scale=0.3),
+        "w_x": spec([g, dr // g, dr // g], (None, None, None), "normal",
+                    scale=0.3),
+        "lam": spec([dr], ("rnn",), "ones"),
+        "w_out": spec([dr, d], ("rnn", "embed"), "scaled"),
+    }
+
+
+def rglru_cache_template(cfg: ModelConfig, batch: int) -> dict:
+    dr = cfg.rglru_d_rnn or cfg.d_model
+    k = cfg.ssm_conv
+    return {
+        "conv": spec([batch, k - 1, dr], ("batch", None, "rnn"), "zeros"),
+        "h": spec([batch, dr], ("batch", "rnn"), "zeros", dtype="float32"),
+    }
+
+
+def rglru_apply(p, x, *, cfg: ModelConfig, impl=None, state=None,
+                length=None):
+    """Returns (x, state after the sequence)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_state = RG.rglru_block(p, h, cfg=cfg, impl=impl, state=state,
+                                    length=length)
+    return x + out, new_state
+
+
+def rglru_decode(p, x, cache, *, cfg: ModelConfig, impl=None):
+    """x: [B, 1, D]; writes the new conv and h state into ``cache`` in
+    place and returns (x, cache)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_state = RG.rglru_decode_step(p, h, cache, cfg=cfg, impl=impl)
+    return x + out, _write_state(cache, new_state)

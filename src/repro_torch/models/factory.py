@@ -1,7 +1,6 @@
 """Model factory: per-arch entry points used by the tests, the planner's
 LM program and the serving engine — the port of the JAX package's
-``models/factory.py`` (dense decoders; no dry-run specs, no quantized
-serving yet).
+``models/factory.py`` (no dry-run specs, no quantized serving yet).
 """
 from __future__ import annotations
 
@@ -21,10 +20,13 @@ from repro_torch.models import params as P
 # Default impl (offload pattern) per config
 # ---------------------------------------------------------------------------
 def default_impl(cfg: ModelConfig) -> Impl:
-    """Architectural defaults (NOT planner decisions).  The dense decoders
-    ported so far have none; the MoE and SSM defaults of the JAX package
-    (``moe_ffn="offload"``, ``ssm_scan="seq"``) arrive with their blocks."""
-    return Impl()
+    """Architectural defaults (NOT planner decisions): SSM archs use the
+    time-sequential chunked scan, as in the JAX package.  (Its MoE default,
+    ``moe_ffn="offload"``, arrives with the MoE block.)"""
+    imp = Impl()
+    if cfg.family == "ssm":
+        imp["ssm_scan"] = "seq"
+    return imp
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Model assembly: templates, full-sequence forward, prefill, decode — the
-port of the JAX package's ``models/lm.py`` for dense decoders.
+port of the JAX package's ``models/lm.py`` for decoders of attention, SSM
+and RG-LRU layers.
 
 Per-layer parameters are stacked along a leading ``layers`` axis, as in the
 JAX tree (so the two packages' trees convert leaf for leaf, see
@@ -7,9 +8,14 @@ JAX tree (so the two packages' trees convert leaf for leaf, see
 :func:`~repro_torch.core.loops.fori_loop` over layer views: a Python loop
 when run, one body run under the planner's counting pass.
 
+Hybrid archs (recurrentgemma) repeat a block *pattern*: the loop runs over
+whole pattern repetitions ("units") and the non-multiple tail is applied
+unstacked — 26 layers of (RGLRU, RGLRU, LOCAL) = 8 units + a 2-layer tail,
+whose params and caches are [B, ...] rather than [layers, B, ...].
+
 Caches are updated in place: ``prefill`` fills a cache it allocates,
-``decode_step`` writes the new token's k/v into the cache it is given and
-returns that same cache.
+``decode_step`` writes the new token's k/v (or recurrent state) into the
+cache it is given and returns that same cache.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
 from repro_torch.core.loops import fori_loop
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -27,17 +33,19 @@ from repro_torch.models.params import DTYPES, spec, stack_tree, tree_map
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in (ATTN, LOCAL_ATTN):
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: slice 3 of the port "
-            "brings the SSM, RG-LRU and MoE blocks")
+    if kind not in (ATTN, LOCAL_ATTN, RGLRU, SSM):
+        raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.is_moe or cfg.frontend != "none" or cfg.encoder_layers:
+    if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, frontends and encoders are not ported yet "
-            "(slice 3 of the port)")
+            f"{cfg.name}: MoE layers are not ported yet (the slice that "
+            "ports models/moe.py and its moe_dispatch region brings them)")
+    if cfg.frontend != "none" or cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: frontends and encoders are not ported yet (the "
+            "slice that ports the VLM and audio archs brings them)")
     for kind in cfg.layer_kinds():
         _check_kind(kind)
 
@@ -64,7 +72,12 @@ def _cast_tree(t, cfg: ModelConfig):
 
 def layer_template(cfg: ModelConfig, kind: str) -> dict:
     _check_kind(kind)
-    t = {"attn": B.attn_template(cfg)}
+    if kind == RGLRU:
+        t = {"rglru": B.rglru_template(cfg)}
+    elif kind == SSM:
+        t = {"ssm": B.ssm_template(cfg)}
+    else:
+        t = {"attn": B.attn_template(cfg)}
     if cfg.d_ff:
         t["ffn"] = B.mlp_template(cfg)
     return t
@@ -94,6 +107,10 @@ def model_template(cfg: ModelConfig) -> dict:
 def layer_cache_template(cfg: ModelConfig, kind: str, batch: int,
                          ctx: int) -> dict:
     _check_kind(kind)
+    if kind == RGLRU:
+        return {"rglru": B.rglru_cache_template(cfg, batch)}
+    if kind == SSM:
+        return {"ssm": B.ssm_cache_template(cfg, batch)}
     window = cfg.attn_window if kind == LOCAL_ATTN else 0
     return {"attn": B.attn_cache_template(cfg, batch, ctx, window=window)}
 
@@ -130,8 +147,14 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 def _apply_unit_seq(unit_params, x, *, cfg, kinds, positions, impl):
     for i, kind in enumerate(kinds):
         p = unit_params[f"l{i}"]
-        x = B.attn_apply(p["attn"], x, cfg=cfg, positions=positions,
-                         impl=impl, causal=True, window=_window(cfg, kind))
+        if kind == RGLRU:
+            x, _ = B.rglru_apply(p["rglru"], x, cfg=cfg, impl=impl)
+        elif kind == SSM:
+            x, _ = B.ssm_apply(p["ssm"], x, cfg=cfg, impl=impl)
+        else:
+            x = B.attn_apply(p["attn"], x, cfg=cfg, positions=positions,
+                             impl=impl, causal=True,
+                             window=_window(cfg, kind))
         if cfg.d_ff:
             x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
     return x
@@ -139,19 +162,28 @@ def _apply_unit_seq(unit_params, x, *, cfg, kinds, positions, impl):
 
 def _apply_unit_seq_exact(unit_params, unit_cache, x, *, cfg, kinds,
                           positions, impl, ctx, length=None):
-    """Like :func:`_apply_unit_seq`, and writes the attention caches into
+    """Like :func:`_apply_unit_seq`, and writes the caches into
     ``unit_cache``.  ``length``: positions >= length are right-padding
     (bucketed prefill); attention is exact under the causal mask, so the
-    padding only has to be masked out of the caches."""
+    padding only has to be masked out of the KV caches and the recurrent
+    state updates."""
     for i, kind in enumerate(kinds):
         p = unit_params[f"l{i}"]
-        window = _window(cfg, kind)
-        x, (k, v) = B.attn_apply(p["attn"], x, cfg=cfg, positions=positions,
-                                 impl=impl, causal=True, window=window,
-                                 return_kv=True)
-        c = B.attn_prefill_cache(k, v, positions=positions, window=window,
-                                 ctx=ctx, length=length)
-        for name, dst in unit_cache[f"l{i}"]["attn"].items():
+        if kind == RGLRU:
+            x, c = B.rglru_apply(p["rglru"], x, cfg=cfg, impl=impl,
+                                 length=length)
+        elif kind == SSM:
+            x, c = B.ssm_apply(p["ssm"], x, cfg=cfg, impl=impl, length=length)
+        else:
+            window = _window(cfg, kind)
+            x, (k, v) = B.attn_apply(p["attn"], x, cfg=cfg,
+                                     positions=positions, impl=impl,
+                                     causal=True, window=window,
+                                     return_kv=True)
+            c = B.attn_prefill_cache(k, v, positions=positions, window=window,
+                                     ctx=ctx, length=length)
+        (dsts,) = unit_cache[f"l{i}"].values()     # the one block cache
+        for name, dst in dsts.items():
             dst.copy_(c[name])
         if cfg.d_ff:
             x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
@@ -160,9 +192,14 @@ def _apply_unit_seq_exact(unit_params, unit_cache, x, *, cfg, kinds,
 
 def _apply_unit_decode(unit_params, unit_cache, x, *, cfg, kinds, pos, impl):
     for i, kind in enumerate(kinds):
-        p = unit_params[f"l{i}"]
-        x, _ = B.attn_decode(p["attn"], x, unit_cache[f"l{i}"]["attn"],
-                             cfg=cfg, pos=pos, window=_window(cfg, kind))
+        p, c = unit_params[f"l{i}"], unit_cache[f"l{i}"]
+        if kind == RGLRU:
+            x, _ = B.rglru_decode(p["rglru"], x, c["rglru"], cfg=cfg, impl=impl)
+        elif kind == SSM:
+            x, _ = B.ssm_decode(p["ssm"], x, c["ssm"], cfg=cfg, impl=impl)
+        else:
+            x, _ = B.attn_decode(p["attn"], x, c["attn"], cfg=cfg, pos=pos,
+                                 window=_window(cfg, kind))
         if cfg.d_ff:
             x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
     return x
@@ -216,8 +253,9 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
     ctx: cache capacity (>= prompt length); defaults to the prompt length.
     length: count of REAL prompt tokens when ``tokens`` is right-padded to
     a bucket (serving-engine bucketed prefill).  The logits are then taken
-    at the last real position and the caches are masked so they equal an
-    unpadded prefill of ``length`` tokens.  None = every token is real."""
+    at the last real position and the caches (KV and recurrent state) are
+    masked so they equal an unpadded prefill of ``length`` tokens.  None =
+    every token is real."""
     x = _embed_inputs(params, cfg, tokens)
     bsz, s_tot = x.shape[:2]
     ctx = max(ctx or s_tot, s_tot)
@@ -243,8 +281,8 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
 
 def decode_step(params, cache, tokens, pos, *, cfg: ModelConfig, impl=None):
     """One decode step.  tokens: [B, 1] int; pos: [B] int absolute
-    position of this token.  Writes the token's k/v into ``cache`` in place;
-    returns (logits [B, 1, V], cache)."""
+    position of this token.  Writes the token's k/v (or the recurrent
+    state) into ``cache`` in place; returns (logits [B, 1, V], cache)."""
     x = _embed_inputs(params, cfg, tokens)
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
 

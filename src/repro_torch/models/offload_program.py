@@ -1,10 +1,11 @@
 """Block-level OffloadableProgram over an LM architecture — the port of the
-JAX package's ``models/offload_program.py`` for dense decoders.
+JAX package's ``models/offload_program.py`` for the dense, SSM and hybrid
+decoders.
 
 The planner plans over the model's block-level regions (``attn_core``,
-``mlp_core``), whose ref/offload/hopper variants are the ones the model
-dispatches through, so the selected pattern IS the model's deploy
-configuration.  As in the JAX package, the regions' analysis arguments
+``mlp_core``, ``ssm_scan``, ``rglru_scan``), whose ref/offload/hopper
+variants are the ones the model dispatches through, so the selected
+pattern IS the model's deploy configuration.  As in the JAX package, the regions' analysis arguments
 are the FULL architecture's per-layer tensors (meta tensors, s = 4096),
 while Step 4 measures ``forward`` on ``cfg.reduced()`` at ``batch`` x
 ``seq`` — so the measured speedups are those of the reduced model.
@@ -65,6 +66,19 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
         wd = meta((full.d_ff, full.d_model), bf16)
         regions.append(Region("mlp_core", variants("mlp_core")["ref"],
                               (x, wg, wg, wd), deploy_variant="offload"))
+    if full.family == "ssm":
+        di, n = full.d_inner, full.ssm_state
+        a = meta((1, ANALYSIS_SEQ, di, n), bf16)
+        c = meta((1, ANALYSIS_SEQ, n), bf16)
+        h0 = meta((1, di, n), torch.float32)
+        regions.append(Region("ssm_scan", variants("ssm_scan")["ref"],
+                              (a, a, c, h0), measure_variant="seq"))
+    if full.family == "hybrid":
+        dr = full.rglru_d_rnn or full.d_model
+        a = meta((1, ANALYSIS_SEQ, dr), bf16)
+        h0 = meta((1, dr), torch.float32)
+        regions.append(Region("rglru_scan", variants("rglru_scan")["ref"],
+                              (a, a, h0)))
 
     def sample(seed: int, device: torch.device):
         g = torch.Generator().manual_seed(seed)

@@ -28,7 +28,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]      # logical axis name per dim
-    init: str = "normal"                 # normal | zeros | ones | scaled | neg_ones_i32
+    init: str = "normal"   # normal | zeros | ones | scaled | a_log | neg_ones_i32
     scale: float = 1.0
     dtype: str = "bfloat16"
 
@@ -91,6 +91,11 @@ def _materialize(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
         return torch.full(s.shape, -1, dtype=dt, device=dev)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=dev)
+    if s.init == "a_log":
+        # mamba A_log init: log(1..N) broadcast over channels
+        n = s.shape[-1]
+        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
+        return a.expand(s.shape).to(dt).contiguous()
     if s.init == "scaled":
         # shape[0]: for a stacked spec that is the layer count (as in JAX)
         fan_in = s.shape[0] if len(s.shape) >= 2 else max(math.prod(s.shape), 1)
@@ -98,8 +103,7 @@ def _materialize(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     if s.init == "normal":
         fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
         return _normal(s.shape, s.scale / math.sqrt(fan_in), dt, generator)
-    raise ValueError(f"init {s.init!r} is not ported yet (slice 3 of the port "
-                     "brings the SSM and RG-LRU initializers)")
+    raise ValueError(f"unknown init {s.init!r}")
 
 
 def init(template, generator: torch.Generator):

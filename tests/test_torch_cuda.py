@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fir, mriq
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rglru_scan as RS
+from repro_torch.kernels import ssm_scan as SS
 
 FIR_TOL = 3e-4
 MRIQ_TOL = 3e-3
@@ -20,6 +22,12 @@ MRIQ_TOL = 3e-3
 # tolerances of tests/test_kernels.py
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-6}
+# scans: float32 1e-4 (ssm) and 1e-5 (rglru), the tolerances of
+# tests/test_kernels.py (the order of the FMA and of the sum over N);
+# bf16 2e-2: kernel and plain version read the same bf16 inputs and carry
+# the same float32 state, so they differ only by the rounding of y (or
+# h_all) to bf16, one ulp of values up to ~4
+SCAN_TOL = {torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -151,3 +159,76 @@ def test_attention_wrappers_raise_on_cuda(cuda_device, bad):
         DA.decode_attention(qd, k, v, sp, cur)
     assert FA.flash_attention.launches == flash_before
     assert DA.decode_attention.launches == decode_before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype,bc,tc", [
+    (1, 2080, 8192, 16, torch.bfloat16, 16, 16),   # falcon-mamba's bucket
+    (1, 16, 8192, 16, torch.bfloat16, 32, 8),      # smallest bucket
+    (2, 9, 300, 16, torch.float32, 4, 8),          # ragged S and D
+    (2, 128, 128, 8, torch.bfloat16, 8, 32),       # the planner's reduced
+    (3, 37, 12, 4, torch.float32, 16, 16),
+])
+def test_ssm_kernel_matches_plain_on_cuda(cuda_device, b, s, d, n, dtype,
+                                          bc, tc):
+    rng = np.random.default_rng(s + d)
+    a = torch.tensor(rng.uniform(0.5, 1.0, (b, s, d, n)), dtype=torch.float32,
+                     device=cuda_device).to(dtype)
+    bx = _normal(rng, (b, s, d, n), dtype, cuda_device)
+    c = _normal(rng, (b, s, n), dtype, cuda_device)
+    h0 = _normal(rng, (b, d, n), torch.float32, cuda_device)
+    before = SS.ssm_scan.launches
+    y, hf = SS.ssm_scan(a, bx, c, h0, block_c=bc, time_chunk=tc)
+    torch.cuda.synchronize()
+    assert SS.ssm_scan.launches == before + 1
+    wy, wh = SS.ssm_scan_plain(a, bx, c, h0)
+    tol = SCAN_TOL.get(dtype, 1e-4)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, wh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype,bc,tc", [
+    (1, 2080, 2560, torch.bfloat16, 128, 16),      # recurrentgemma's bucket
+    (1, 16, 2560, torch.bfloat16, 128, 16),
+    (2, 9, 300, torch.float32, 64, 8),             # ragged S and D
+    (2, 128, 64, torch.bfloat16, 256, 32),         # the planner's reduced
+])
+def test_rglru_kernel_matches_plain_on_cuda(cuda_device, b, s, d, dtype, bc,
+                                            tc):
+    rng = np.random.default_rng(s + d)
+    a = torch.tensor(rng.uniform(0.5, 1.0, (b, s, d)), dtype=torch.float32,
+                     device=cuda_device).to(dtype)
+    bb = _normal(rng, (b, s, d), dtype, cuda_device)
+    h0 = _normal(rng, (b, d), torch.float32, cuda_device)
+    before = RS.rglru_scan.launches
+    h_all, hf = RS.rglru_scan(a, bb, h0, block_c=bc, time_chunk=tc)
+    torch.cuda.synchronize()
+    assert RS.rglru_scan.launches == before + 1
+    wa, wh = RS.rglru_scan_plain(a, bb, h0)
+    tol = SCAN_TOL.get(dtype, 1e-5)
+    torch.testing.assert_close(h_all.float(), wa.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, wh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,dtype,window,bq,bk", [
+    (2080, torch.bfloat16, 2048, 64, 64),    # recurrentgemma's local attention
+    (2048, torch.bfloat16, 2048, 32, 64),
+    (300, torch.float32, 48, 64, 32),        # ragged, windowed, f32
+])
+def test_flash_kernel_at_head_dim_256_on_cuda(cuda_device, s, dtype, window,
+                                              bq, bk):
+    rng = np.random.default_rng(s)
+    q = _normal(rng, (1, 10, s, 256), dtype, cuda_device)
+    k = _normal(rng, (1, 1, s, 256), dtype, cuda_device)
+    v = _normal(rng, (1, 1, s, 256), dtype, cuda_device)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, window=window, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError):              # 512 threads: refused
+        FA.flash_attention(q, k, v, block_q=128, block_k=32)

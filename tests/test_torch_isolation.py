@@ -1,7 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, no source under ``src/repro_torch`` imports them, and its entry
-points run on CUDA unless asked for the CPU — without a card they raise
-instead of carrying on on the CPU."""
+package, no source under ``src/repro_torch`` (nor ``chip_smoke.py``)
+imports them, and its entry points run on CUDA unless asked for the CPU —
+without a card they raise instead of carrying on on the CPU."""
 import os
 import re
 import subprocess
@@ -44,7 +44,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b"
 def test_no_source_imports_jax_or_the_jax_package():
     sources = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(sources) >= 20
-    offenders = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
+    sources.append(SRC.parent / "chip_smoke.py")       # the card's smoke test
+    offenders = [f"{p.relative_to(SRC.parent)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert offenders == []
     assert _FORBIDDEN.search("from repro.core import regions")
@@ -68,10 +69,16 @@ def _entry_points():
         "fig4_offload.main": lambda: fig4_offload.main(["--app", "mriq",
                                                         "--no-cache"]),
         "make_lm_program": lambda: make_lm_program("mistral-nemo-12b"),
+        "make_lm_program falcon-mamba-7b":
+            lambda: make_lm_program("falcon-mamba-7b"),
+        "make_lm_program recurrentgemma-2b":
+            lambda: make_lm_program("recurrentgemma-2b"),
         "make_decode_program": lambda: make_decode_program(),
         "params_from_numpy": lambda: params_from_numpy({"w": x}),
         "serve.main": lambda: serve.main(["--arch", "mistral-nemo-12b",
                                           "--reduced"]),
+        "serve.main recurrentgemma-2b": lambda: serve.main(
+            ["--arch", "recurrentgemma-2b", "--reduced"]),
     }
 
 
@@ -89,5 +96,11 @@ def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert backend_name("cpu") == "cpu"
     assert mriq.make_program(device="cpu").device == torch.device("cpu")
+    from repro_torch.launch import serve
+    from repro_torch.models.offload_program import make_lm_program
+    for arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
+        assert make_lm_program(arch, device="cpu").device == torch.device("cpu")
+    serve.main(["--arch", "recurrentgemma-2b", "--reduced", "--device", "cpu",
+                "--requests", "1", "--prompt-len", "4", "--new-tokens", "2"])
     x = np.zeros((2, 8), np.complex64)
     assert from_numpy("tdfir", [x, x], device="cpu")[0].device.type == "cpu"

@@ -106,9 +106,21 @@ def test_config_and_templates_mirror_jax():
 
 
 def test_layer_kinds_other_than_attention_raise():
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), family="ssm")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        lm.model_template(cfg)
+    """The SSM and RG-LRU kinds are ported (tests/test_torch_recurrent.py);
+    MoE layers, frontends and encoders still raise, naming the slice that
+    brings them, and an unknown kind is refused."""
+    base = get_config(ARCH).reduced()
+    with pytest.raises(NotImplementedError, match="moe_dispatch"):
+        lm.model_template(dataclasses.replace(base, num_experts=4,
+                                              experts_per_token=2))
+    for over in ({"frontend": "siglip_stub", "frontend_seq": 4,
+                  "frontend_dim": 64},
+                 {"encoder_layers": 2, "cross_attention": True}):
+        with pytest.raises(NotImplementedError, match="frontends"):
+            lm.cache_template(dataclasses.replace(base, **over), 1, 8)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        lm.model_template(dataclasses.replace(base, layer_pattern=("moe",)))
+    assert lm.model_template(dataclasses.replace(base, family="ssm"))
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 64), (3, 16)])

@@ -110,3 +110,76 @@ def test_decode_program_tuned_plan_measures_every_fitting_tile(tmp_path):
     report = AutoOffloader(cfg).plan(prog, cache=PlanCache(tmp_path / "p.json"))
     seen = sorted(str(m.mapping()["decode_attn"]) for m in report.measurements)
     assert len(seen) == 3 and report.search_space == 3
+
+
+# ---------------------------------------------------------------------------
+# the recurrent archs: falcon-mamba-7b (ssm_scan), recurrentgemma-2b
+# (attn_core at head_dim 256, mlp_core, rglru_scan)
+# ---------------------------------------------------------------------------
+RECURRENT_REGIONS = {
+    "falcon-mamba-7b": (["ssm_scan"], ["hopper"], ["seq"]),
+    "recurrentgemma-2b": (["attn_core", "mlp_core", "rglru_scan"],
+                          ["hopper", "offload", "hopper"],
+                          ["offload", "offload", "offload"]),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(RECURRENT_REGIONS))
+def recurrent_programs(request):
+    arch = request.param
+    return arch, jax_lm_program(arch), make_lm_program(arch, device="cpu")
+
+
+def test_recurrent_lm_programs_match_jax(recurrent_programs):
+    arch, jprog, tprog = recurrent_programs
+    names, deploy, measure = RECURRENT_REGIONS[arch]
+    assert tprog.name == jprog.name == f"lm:{arch}"
+    assert [r.name for r in tprog.regions] == [r.name for r in jprog.regions]
+    assert [r.name for r in tprog.regions] == names
+    assert ([r.arg_signature() for r in tprog.regions]
+            == [r.arg_signature() for r in jprog.regions])
+    assert [r.deploy_variant for r in tprog.regions] == deploy
+    assert [r.measure_variant for r in tprog.regions] == measure
+    assert ([r.measure_variant for r in jprog.regions] == measure)
+    assert tprog.cache_extra == jprog.cache_extra
+    assert tprog.source_loop_count == jprog.source_loop_count
+    # the JAX variants of each region, with pallas -> hopper
+    from repro.core.regions import variants as jax_variants
+    from repro_torch.core.regions import variants
+    for r in tprog.regions:
+        want = {"hopper" if v == "pallas" else v for v in jax_variants(r.name)}
+        assert set(variants(r.name)) == want, r.name
+
+
+def test_recurrent_lm_program_step2_ranks_regions_as_jax_does(
+        recurrent_programs):
+    _, jprog, tprog = recurrent_programs
+
+    def order(prog, analyze):
+        ai = {r.name: analyze(r.analysis_fn, *r.analysis_args,
+                              name=r.name).arithmetic_intensity
+              for r in prog.regions}
+        return sorted(ai, key=lambda n: -ai[n])
+
+    assert order(tprog, analyze_region) == order(jprog, jax_analyze)
+
+
+@pytest.mark.parametrize("arch,pairs", [
+    ("falcon-mamba-7b", [("ssm_scan", "hopper")]),
+    # the fused MLP's and the chunked attention's intermediates exceed the
+    # L2; the float32 rglru chunks (21 MB) fit it
+    ("recurrentgemma-2b", [("rglru_scan", "hopper"), ("attn_core", "hopper"),
+                           ("rglru_scan", "offload")]),
+])
+def test_cpu_plan_of_the_recurrent_programs_completes_then_hits(tmp_path, arch,
+                                                                pairs):
+    prog = make_lm_program(arch, seq=32, device="cpu")
+    cfg = PlannerConfig(reps=2)
+    cache = PlanCache(tmp_path / "plans.json")
+    report = AutoOffloader(cfg).plan(prog, cache=cache)
+    assert report.baseline.ok and report.measurements
+    assert all(m.ok for m in report.measurements)
+    assert sorted(report.eff_pairs) == sorted(pairs)
+    again = AutoOffloader(cfg).plan(prog, cache=cache)
+    assert again.from_cache and not again.measurements
+    assert again.best_pattern == report.best_pattern

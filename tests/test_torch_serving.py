@@ -212,3 +212,84 @@ def test_a_kernel_error_propagates_with_no_rollback(model):
             eng.run_to_completion()
     finally:
         unregister_variant("attn_core", "broken_for_test")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (falcon-mamba-7b, recurrentgemma-2b), reduced, f32
+# ---------------------------------------------------------------------------
+RECURRENT = {"falcon-mamba-7b": {"ssm_scan": "hopper"},
+             "recurrentgemma-2b": {"rglru_scan": "hopper",
+                                   "attn_core": "hopper"}}
+
+
+@pytest.fixture(scope="module", params=sorted(RECURRENT))
+def recurrent_model(request):
+    arch = request.param
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jparams = JF.init_params(jcfg, jax.random.PRNGKey(4))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return arch, jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture
+def f32_logits_tied(monkeypatch):
+    """As ``f32_logits``, for tied (recurrentgemma) and untied tables."""
+    monkeypatch.setattr(JL, "unembed", lambda x, w, tied: jnp.einsum(
+        "...d,vd->...v" if tied else "...d,dv->...v", x.astype(jnp.float32), w))
+    monkeypatch.setattr(L, "unembed", lambda x, w, tied: x.float() @ (
+        w.t() if tied else w).float())
+
+
+def test_recurrent_greedy_streams_equal_the_jax_engine(recurrent_model,
+                                                       f32_logits_tied):
+    """Recurrent state through bucketed prefill, cache_insert into a slot
+    and in-place decode: the JAX engine's streams, token for token.  (The
+    reduced hybrid's window, 32, outlasts these prompts; the window wraps
+    in tests/test_torch_recurrent.py.)"""
+    _, jcfg, tcfg, jparams, tparams = recurrent_model
+    prompts = _prompts((5, 12, 7, 3))            # buckets 8, 16, 8, 8
+    want = _serve(JaxEngine(jcfg, jparams, slots=2, ctx=32, seed=0),
+                  prompts, 6)
+    got = _serve(ServeEngine(tcfg, tparams, slots=2, ctx=32, seed=0),
+                 prompts, 6)
+    assert got == want
+
+
+def test_recurrent_hopper_variants_serve_the_same_greedy_streams(
+        recurrent_model, f32_logits_tied):
+    arch, _, tcfg, _, tparams = recurrent_model
+    prompts = _prompts((9, 3, 14))
+    ref = _serve(ServeEngine(tcfg, tparams, slots=2, ctx=24), prompts, 5)
+    hop = _serve(ServeEngine(tcfg, tparams, slots=2, ctx=24,
+                             impl=RECURRENT[arch]), prompts, 5)
+    assert hop == ref
+
+
+def test_cache_insert_writes_recurrent_state_into_the_slot(recurrent_model):
+    arch, _, tcfg, _, _ = recurrent_model
+    full = F.init_cache(tcfg, 3, 8, "cpu")
+    one = F.init_cache(tcfg, 1, 8, "cpu")
+    block = "ssm" if arch == "falcon-mamba-7b" else "rglru"
+    for t in one["stack"]["l0"][block].values():
+        t.fill_(7)
+    h = full["stack"]["l0"][block]["h"]
+    assert cache_insert(full, one, 2) is full
+    assert full["stack"]["l0"][block]["h"] is h
+    for t in full["stack"]["l0"][block].values():
+        assert bool((t[:, 2] == 7).all()) and bool((t[:, :2] == 0).all())
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_serve_launcher_plans_and_serves_the_recurrent_archs(tmp_path, capsys,
+                                                             arch):
+    cache = str(tmp_path / "plans.json")
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--auto-offload",
+            "--plan-cache", cache, "--requests", "3", "--vary-lengths",
+            "--prompt-len", "12", "--new-tokens", "3", "--slots", "2"]
+    serve_launcher.main(argv)
+    first = capsys.readouterr().out
+    assert "auto-offload [measured search [staged]]" in first
+    assert "served 3 requests / 9 tokens" in first
+    serve_launcher.main(argv)
+    assert "auto-offload [plan cache]" in capsys.readouterr().out

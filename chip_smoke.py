@@ -17,10 +17,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    the planners' reduced models) and at one shape off the kernel's grain
    (FIR: N=4000, where the default block_n 512 is clamped to 500; MRI-Q:
    300 x 200, ragged in both loops; the scans: S=9 and D=300, no multiple
-   of a tile); times kernel, plain version and, where one PyTorch call
-   computes the same function, that call with CUDA events; prints the
-   bound and each kernel's registers and shared memory beside the Step-3
-   estimate.
+   of a tile; rmsnorm: 9 rows of D=300, off the 16-byte grain); times
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call with CUDA events; prints the bound and each
+   kernel's registers and shared memory beside the Step-3 estimate.
 4. planner — the main path: the five-step planner on tdFIR (HPEC set 1)
    and MRI-Q (sampled at its bench size, analysed at Parboil "large"),
    strategy staged, d=4, against a temporary plan cache; a second plan is
@@ -52,15 +52,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    2-layer tail; window 2,048, 10 query heads over 1 kv head of width
    256) with ``rglru_scan=hopper`` and ``attn_core=hopper``; ``rglru_scan``
    and ``flash_attention`` must have launched in this phase.
+10. extract — the slice-4 main path, static extraction: the recognizer
+   accuracy table of ``repro_torch.launch.loop_extraction`` over the three
+   archs captured at full width and full depth on fake tensors (no
+   memory), then an unannotated full-width Mistral-NeMo-12B (40 layers,
+   random weights from a seeded generator on the card): its all-ref
+   forward at a [1, 512] prompt is captured, recognized, legalized and
+   stitched by ``discover()``, planned (staged, d=4, temporary plan cache;
+   a pattern with ``rmsnorm=hopper`` must be measured, and the re-plan
+   must be a cache hit), and run with ``rmsnorm=hopper`` over the selected
+   pattern; its logits are held against the captured program's, and
+   ``rmsnorm`` must have launched (81 times per forward).
 
 Every launch counter is set to 0 just before the path it belongs to runs
 and read just after it; the comparisons of phase 3 do not count.
 
-The line before the last is one JSON object listing every ported kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+The card's name and power limit come two lines before the last, the JSON
+object listing every ported kernel on the line before the last, and the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -99,6 +112,7 @@ SERVE_NEW_TOKENS = 16
 # tile or time step moves the logits by O(1).
 LOGIT_NOISE_FACTOR = 3.0
 LOGIT_TOL_MIN = 0.05
+EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
 
 ROOT = Path(__file__).resolve().parent
 
@@ -231,6 +245,16 @@ def rglru_bound_ms(b, s, d, elem) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def rmsnorm_bound_ms(rows, d, elem, w_elem) -> tuple[float, str]:
+    """Least time for RMSNorm: x read once and out written once in x's
+    type, w read once; per element 4 FP32 flops (square-add, two scalings)
+    and per row one rsqrt on the SFUs."""
+    t_ops = max(4.0 * rows * d / FP32_FLOPS_PER_S, rows / SFU_OPS_PER_S)
+    t_bytes = (2 * elem * rows * d + w_elem * d) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -247,7 +271,8 @@ def main() -> int:
     from repro_torch.configs.paper_apps import MRIQ_BENCH, MRIQ_FULL, TDFIR_FULL
     from repro_torch.core.plan_cache import PlanCache
     from repro_torch.core.planner import AutoOffloader, PlannerConfig
-    from repro_torch.core.regions import Impl, variants
+    from repro_torch.core.regions import (Impl, register_variant,
+                                          unregister_variant, variants)
     from repro_torch.core.resources import precompile
     from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.configs.base import get_config
@@ -256,7 +281,11 @@ def main() -> int:
     from repro_torch.kernels import fir, mriq
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.kernels.ref import rmsnorm_plain
+    from repro_torch.core.extract import discover
+    from repro_torch.launch import loop_extraction
     from repro_torch.models import factory as F
     from repro_torch.models.lm import layer_plan
     from repro_torch.models.offload_program import make_lm_program
@@ -264,7 +293,7 @@ def main() -> int:
     from repro_torch.serving.engine import ServeEngine
     sdpa = torch.nn.functional.scaled_dot_product_attention
     counters = (fir.fir_filter_bank, mriq.mriq_compute_q, FA.flash_attention,
-                DA.decode_attention, SS.ssm_scan, RS.rglru_scan)
+                DA.decode_attention, SS.ssm_scan, RS.rglru_scan, RN.rmsnorm)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -635,6 +664,98 @@ def main() -> int:
         del args, got, want
     torch.cuda.empty_cache()
 
+    def rmsnorm_launches(x, w):
+        """The kernel alone, launched straight from its C entry point on
+        the wrapper's arguments (checked and allocated once), for timing:
+        at these sizes the wrapper's host cost per call (~25 us) exceeds
+        the kernel's, so back-to-back wrapper calls time the host.  These
+        launches are measurements and are not counted."""
+        lib = RN._lib()
+        rows_x = x.view(-1, x.shape[-1])
+        out = torch.empty_like(rows_x)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (rows_x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                rows_x.shape[0], rows_x.shape[1], rows_x.stride(0), 1e-5,
+                int(x.dtype == bf16), int(w.dtype == bf16),
+                RN.threads(x.shape[-1], x.element_size()), stream)
+        _build.check(lib.rmsnorm_launch(*args), lib, "rmsnorm")
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(x.shape), RN.rmsnorm(x, w, eps=1e-5)):
+            raise AssertionError("rmsnorm: direct launch and wrapper differ")
+        return lambda: lib.rmsnorm_launch(*args)
+
+    # rmsnorm at the rows the norms of phases 6, 8 and 9 and of phase 10's
+    # discovered Mistral see (prefill buckets, a decode step) and 9 rows of
+    # D=300 (600-byte bf16 rows: off the 16-byte grain, the scalar path).
+    # bf16 2e-2, the tolerance of tests/test_kernels.py: kernel and plain
+    # version agree to float32 summation order, then round once to bf16.
+    # float32 1e-5: the summation order of the row's sum of squares.
+    norm_tols = {bf16: 2e-2, f32: 1e-5}
+    norm_cases = [((1, 2048, 5120), "Mistral prefill"),
+                  ((1, 2080, 4096), "falcon-mamba prefill"),
+                  ((1, 2080, 2560), "recurrentgemma prefill"),
+                  ((4, 1, 5120), "decode step"),
+                  ((9, 300), "off-grain")]
+    for (shape, label), dt in [(c, dt) for dt in (bf16, f32)
+                               for c in norm_cases] + [
+            (((1, 2048, 5120), "Mistral prefill, f32 w"), bf16)]:
+        w_dt = f32 if label.endswith("f32 w") else dt
+        x = dnormal(*shape, dtype=dt)
+        w = dnormal(shape[-1], dtype=w_dt) * 0.1
+        got, want = RN.rmsnorm(x, w, eps=1e-5), rmsnorm_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        tol = norm_tols[dt]
+        assert_close(torch, got.float(), want.float(), f"rmsnorm {label}",
+                     rtol=tol, atol=tol)
+        err = max_abs_err(torch, got.float(), want.float())
+        n_rows, d = x.numel() // shape[-1], shape[-1]
+        bound_ms, bound_by = rmsnorm_bound_ms(n_rows, d, x.element_size(),
+                                              w.element_size())
+        line = (f"rmsnorm {label} {list(shape)} x "
+                f"{str(dt).removeprefix('torch.')}, w "
+                f"{str(w_dt).removeprefix('torch.')}: max_abs_err={err:.3e} "
+                f"(tol rtol=atol={tol})")
+        if label.endswith("prefill") or label == "decode step":
+            ms, ms_range = cuda_ms(torch, rmsnorm_launches(x, w), 200)
+            call_ms, call_range = cuda_ms(torch, lambda: RN.rmsnorm(
+                x, w, eps=1e-5), 100)
+            line += (f"; kernel {ms:.4f} ms {ms_range} (wrapper call "
+                     f"{call_ms:.4f} ms {call_range}), bound "
+                     f"{bound_ms * 1e3:.2f} us ({bound_by})")
+        print(line)
+        if label == "Mistral prefill" and dt == bf16:
+            plain_ms, plain_range = cuda_ms(
+                torch, lambda: rmsnorm_plain(x, w, 1e-5), 50)
+            w1 = 1.0 + w.float()            # formed outside the timing
+            lib = torch.nn.functional.rms_norm(x.float(), (d,), w1,
+                                               1e-5).to(x.dtype)
+            assert_close(torch, lib.float(), want.float(),
+                         "F.rms_norm vs plain", rtol=tol, atol=tol)
+            lib_ms, lib_range = cuda_ms(torch, lambda: torch.nn.functional
+                                        .rms_norm(x.float(), (d,), w1, 1e-5)
+                                        .to(x.dtype), 50)
+            est = precompile("rmsnorm", "hopper",
+                             variants("rmsnorm")["hopper"], (x, w), None,
+                             {"eps": 1e-5})
+            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+                  f"{plain_range}  F.rms_norm {lib_ms:.4f} ms {lib_range}  "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
+                  f"{clocks()}")
+            print(f"  cudaFuncGetAttributes: {RN.kernel_attributes()}; "
+                  f"{RN.threads(d, 2)} threads per row; static smem "
+                  f"{RN.smem_bytes()} B/block; Step-3 estimate "
+                  f"{est.resource_bytes:.0f} B/block")
+            rows["rmsnorm"] = {
+                "name": "rmsnorm", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "replaces": "src/repro/kernels/rmsnorm.py:21",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+        del x, w, got, want
+    torch.cuda.empty_cache()
+
     # ---- 4. planner (main path; launch counters zeroed here) ------------
     phase("4. planner")
     for counter in counters:
@@ -878,17 +999,122 @@ def main() -> int:
           f"(head_dim 256); at head_dim 256 [1, 10/1, 2,048, 256] bf16 window "
           f"2,048: {json.dumps(flash256)}")
 
+    # ---- 10. static extraction of an unannotated model (slice-4 path) ---
+    phase("10. extract")
+    t10 = time.perf_counter()
+    for counter in counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    accuracy = loop_extraction.run_accuracy(dev, reduced=False)
+    loop_extraction.print_accuracy(*accuracy)
+    print(f"accuracy table: the archs at full width and full depth, captured "
+          f"on fake tensors, in {time.perf_counter() - t0:.1f} s")
+
+    ncfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(F.synthetic_batch(
+        ncfg, 1, EXTRACT_PROMPT, seed=3)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    print(f"{ARCH}: {ncfg.num_layers} layers drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fwd = F.make_forward(ncfg, Impl())           # all-ref: unannotated
+
+    def unannotated(t):
+        return fwd(params, {"tokens": t})
+
+    t0 = time.perf_counter()
+    prog = discover(unannotated, (tokens,), name=ARCH)
+    found = prog.extraction
+    print(found.summary().splitlines()[0])
+    print(f"discovered {ARCH} at [1, {EXTRACT_PROMPT}] in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{len(found.graph_module.graph.nodes)} graph nodes; regions "
+          + ", ".join(f"{r.name} {r.arg_signature()}"
+                      + (f" {r.static_kwargs}" if "+" not in r.name else "")
+                      for r in prog.regions))
+    missing = {"rmsnorm", "attn_core", "mlp_core"} - {r.name for r in prog.regions}
+    if missing:
+        raise AssertionError(f"extract {ARCH}: {sorted(missing)} not discovered")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(Path(tmp) / "plans.json")
+        t0 = time.perf_counter()
+        report = AutoOffloader(cfg).plan(prog, cache=cache)
+        print(report.summary())
+        print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
+              f"{len(report.measurements)} measurements")
+        if not (report.baseline.ok and any(
+                m.ok and m.mapping().get("rmsnorm") == "hopper"
+                for m in report.measurements)):
+            raise AssertionError("rmsnorm=hopper was not measured")
+        again = AutoOffloader(cfg).plan(prog, cache=cache)
+        if not again.from_cache or again.measurements:
+            raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
+        print(f"re-plan: served from plan cache with "
+              f"{len(again.measurements)} measurements")
+    impl = Impl({**report.best_impl(), "rmsnorm": "hopper"})
+    ref = prog.build(Impl())(tokens)
+    # the noise floor: two plain versions against each other.  offload
+    # against ref is the rule of phases 6, 8 and 9, but at 512 tokens both
+    # attention versions take one 512 x 512 tile and give the same logits;
+    # so the floor also takes the norms computed by PyTorch's own
+    # F.rms_norm (the same function, summed in another order), a variant
+    # registered for this comparison only
+    floor_impl = Impl({r.name: "offload" for r in prog.regions
+                       if "+" not in r.name and "offload" in variants(r.name)})
+    register_variant("rmsnorm", "torch_rms_norm")(
+        lambda x, w, eps=1e-6: torch.nn.functional.rms_norm(
+            x.float(), (x.shape[-1],), 1.0 + w.float(), eps).to(x.dtype))
+    try:
+        floors = {i.describe(): float((prog.build(i)(tokens) - ref).abs().max())
+                  for i in (floor_impl, Impl({"rmsnorm": "torch_rms_norm"}))}
+    finally:
+        unregister_variant("rmsnorm", "torch_rms_norm")
+    floor = max(floors.values())
+    tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
+    print(f"noise floor (plain vs all-ref): {floors} -> {floor:.3e}; tol "
+          f"max({LOGIT_NOISE_FACTOR} x floor, {LOGIT_TOL_MIN}) = {tol:.3e}; "
+          f"max |logits| {float(ref.abs().max()):.3f}")
+    per_forward = 0
+    for run in (Impl({"rmsnorm": "hopper"}), impl):
+        before = RN.rmsnorm.launches
+        hop = prog.build(run)(tokens)
+        torch.cuda.synchronize()
+        per_forward = RN.rmsnorm.launches - before
+        if not bool(torch.isfinite(hop).all()) or hop.shape != ref.shape:
+            raise AssertionError(f"extract {ARCH}: logits {tuple(hop.shape)} "
+                                 "non-finite or misshapen")
+        diff = float((hop - ref).abs().max())
+        agree = float((hop.argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"logits [1, {EXTRACT_PROMPT}, {ncfg.vocab_size}] with "
+              f"{run.describe()} vs the captured program: max abs diff "
+              f"{diff:.3e} (tol {tol:.3e}); argmax agrees at {agree:.4f} of "
+              f"positions; {per_forward} rmsnorm launches")
+        if diff > tol:
+            raise AssertionError(f"extract {ARCH}: {run.describe()} logits "
+                                 f"differ by {diff:.3e} > {tol:.3e}")
+    extract_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 10: {extract_launches}; rmsnorm per forward "
+          f"{per_forward} (2 per layer x {ncfg.num_layers} + the final norm)")
+    if extract_launches["rmsnorm"] <= 0 or per_forward != 2 * ncfg.num_layers + 1:
+        raise AssertionError("rmsnorm was not launched on the main path")
+    rows["rmsnorm"]["launches"] = extract_launches["rmsnorm"]
+    del prog, found, report, again, hop, ref, params, fwd, unannotated
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
+
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
-             "decode_attention", "ssm_scan", "rglru_scan")
+             "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")
     print("kernels: " + ", ".join(f"{n} ported (cuda)" for n in names)
-          + "; to port: rmsnorm")
+          + "; no kernel left to port")
+    print(card)
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in ("name", "route", "source", "replaces",
                                     "launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
         for name in names]}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,7 +68,7 @@ _ZERO_FLOP = {
     "zero", "new_zeros", "new_empty", "new_full", "new_ones",
     "scalar_tensor", "arange", "view_as_real", "view_as_complex", "real",
     "imag", "conj", "_conj", "resolve_conj", "resolve_neg", "unfold",
-    "as_strided", "isfinite",
+    "as_strided", "isfinite", "select_scatter", "slice_scatter",
 }
 
 

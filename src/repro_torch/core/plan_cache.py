@@ -96,6 +96,15 @@ def _conditions(program) -> dict:
         (k, repr(v)) for k, v in extra.items())}
 
 
+def _static_kwargs(region) -> dict:
+    """A region's ``static_kwargs`` as a key part; absent when empty, so
+    keys of annotated programs (which have none) stay as they were."""
+    if not region.static_kwargs:
+        return {}
+    return {"static_kwargs": sorted(
+        (k, repr(v)) for k, v in region.static_kwargs.items())}
+
+
 def plan_cache_key(program, config, backend: str) -> str:
     """Deterministic key for (program, abstract shapes, backend, config).
 
@@ -139,6 +148,7 @@ def plan_cache_key(program, config, backend: str) -> str:
                 # rank-key tiebreakers: changing a region's declared
                 # preference can change the selected plan, so it re-keys
                 "preferred": [r.deploy_variant, r.measure_variant],
+                **_static_kwargs(r),
                 **({"tuning": _tuning_signatures(r.name)} if tuned else {}),
             }
             for r in program.regions
@@ -153,7 +163,7 @@ def plan_cache_key(program, config, backend: str) -> str:
 def measurement_cache_key(program, backend: str) -> str:
     """Measurement-*compatibility* key: two plan runs share it exactly when
     their Step-4 timings are comparable — same program, same backend, same
-    region shapes.  Deliberately EXCLUDES everything ``plan_cache_key`` adds
+    region shapes and static kwargs.  Deliberately EXCLUDES everything ``plan_cache_key`` adds
     on top (variant registry, planner budgets, strategy): registering a new
     variant or changing ``d`` re-opens the *search* but does not invalidate
     the *measurements* already taken, so a re-opened search can prime its
@@ -163,7 +173,8 @@ def measurement_cache_key(program, backend: str) -> str:
     payload = {
         "program": program.name,
         "backend": backend,
-        "regions": [{"name": r.name, "args": r.arg_signature()}
+        "regions": [{"name": r.name, "args": r.arg_signature(),
+                     **_static_kwargs(r)}
                     for r in program.regions],
         **_conditions(program),
     }

@@ -283,9 +283,10 @@ class AutoOffloader:
         for c in cands:
             if c.region not in ai_set:
                 continue
+            r = region_map[c.region]
             for var, fn in offload_variants(c.region).items():
-                jobs.append((c.region, var, fn,
-                             region_map[c.region].analysis_args))
+                jobs.append((c.region, var, fn, r.analysis_args, None,
+                             r.static_kwargs))
                 meta.append((c, var))
         pairs: list[VariantCandidate] = []
         for (c, var), est in zip(meta, precompile_many(jobs)):

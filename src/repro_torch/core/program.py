@@ -28,6 +28,10 @@ class Region:
     # prefers the declared deploy/measure variant (see planner rank_key)
     measure_variant: str = "offload"
     deploy_variant: str = "hopper"
+    # compile-time knobs every variant of this region is called with (a
+    # discovered region's ``causal``/``window``/``eps``); empty for the
+    # annotated programs, which pass them at their own call sites
+    static_kwargs: dict = field(default_factory=dict)
 
     def arg_signature(self) -> list[str]:
         """Abstract shapes/dtypes of the analysis args — the shape part of

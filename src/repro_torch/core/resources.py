@@ -69,15 +69,18 @@ class ResourceEstimate:
 
 
 def precompile(region: str, variant: str, fn: Callable, args,
-               params: dict | None = None) -> ResourceEstimate:
-    """The cheap lowering pass: one run of ``fn(*args, **params)`` on meta
-    copies of ``args``; ``params`` are a tuned gene's tile knobs."""
+               params: dict | None = None,
+               static_kwargs: dict | None = None) -> ResourceEstimate:
+    """The cheap lowering pass: one run of ``fn(*args, **static_kwargs,
+    **params)`` on meta copies of ``args``; ``params`` are a tuned gene's
+    tile knobs, ``static_kwargs`` the region's own (``Region.static_kwargs``)."""
     params = params or {}
+    kwargs = {**(static_kwargs or {}), **params}
     est = _SMEM_ESTIMATORS.get((region, variant))
     budget = SMEM_PER_BLOCK if est else L2_BYTES
     t0 = time.perf_counter()
     try:
-        counter, _ = count_ops(lambda *a: fn(*a, **params), args)
+        counter, _ = count_ops(lambda *a: fn(*a, **kwargs), args)
         used = (float(est(*args, **params)) if est
                 else float(counter.largest_bytes))
         return ResourceEstimate(region, variant, used, budget, counter.n_ops,
@@ -89,7 +92,8 @@ def precompile(region: str, variant: str, fn: Callable, args,
 
 
 def precompile_many(jobs) -> list[ResourceEstimate]:
-    """Step-3 fan-out over ``(region, variant, fn, args)`` jobs, in job
-    order (serial: the concurrent executor is not ported)."""
+    """Step-3 fan-out over ``(region, variant, fn, args[, params[,
+    static_kwargs]])`` jobs, in job order (serial: the concurrent executor
+    is not ported)."""
     return list(map(lambda j: precompile(*j), list(jobs)))
 

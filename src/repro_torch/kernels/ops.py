@@ -1,10 +1,12 @@
 """Registration of the model regions' ``hopper`` variants (the hand-written
-CUDA kernels) and of the ``decode_attn`` region — the port of the JAX
-package's ``kernels/ops.py`` for the attention and scan kernels.
+CUDA kernels) and of the ``decode_attn`` and ``rmsnorm`` regions — the port
+of the JAX package's ``kernels/ops.py`` for the attention, scan and norm
+kernels.
 
-Each ``hopper`` variant declares a :class:`TuningSpace` and a Step-3
-shared-memory estimator.  The tile genes differ from the JAX package's:
-its axes (``block_q`` up to 512, ``block_k`` up to 1024, ``0`` = auto)
+Each ``hopper`` variant declares a Step-3 shared-memory estimator, and each
+but ``rmsnorm``'s a :class:`TuningSpace` (the JAX package declares none for
+``rmsnorm``, whose only variant there is ``pallas``).  The tile genes
+differ from the JAX package's: its axes (``block_q`` up to 512, ``block_k`` up to 1024, ``0`` = auto)
 were sized for 16 MiB of TPU VMEM, where a 1024 x 128 bf16 K-plus-V tile
 (512 KB) fits; no Hopper block can hold that.  Here the axes are the tile
 sizes the CUDA sources instantiate, and the validity predicate admits a
@@ -26,6 +28,7 @@ from repro_torch.kernels import SMEM_PER_BLOCK
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rglru_scan as RS
+from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssm_scan as SS
 
 
@@ -125,7 +128,10 @@ def _ssm_tile_ok(p, args) -> bool:
     validity=_ssm_tile_ok))
 def ssm_scan_hopper(a, bx, c, h0, *, block_c=SS.DEFAULT_BLOCK_C,
                     time_chunk=SS.DEFAULT_TIME_CHUNK):
-    return SS.ssm_scan(a, bx, c, h0, block_c=block_c, time_chunk=time_chunk)
+    # the kernel carries a float32 state; a region found by static
+    # extraction binds the ref's h0 after its cast to a's type (exact here)
+    return SS.ssm_scan(a, bx, c, h0.float(), block_c=block_c,
+                       time_chunk=time_chunk)
 
 
 @register_smem_estimator("ssm_scan", "hopper")
@@ -150,3 +156,17 @@ def rglru_scan_hopper(a, b, h0, *, block_c=RS.DEFAULT_BLOCK_C,
 @register_smem_estimator("rglru_scan", "hopper")
 def _rglru_hopper_smem(*_, **__):
     return 0        # the kernel keeps its chunks in registers
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm: reached only through static extraction (core/extract.py), as in
+# the JAX package, where the models call the plain layers.rms_norm
+# ---------------------------------------------------------------------------
+@register_variant("rmsnorm", "hopper")
+def rmsnorm_hopper(x, w, eps=1e-6):
+    return RN.rmsnorm(x, w, eps=eps)
+
+
+@register_smem_estimator("rmsnorm", "hopper")
+def _rmsnorm_hopper_smem(*_, **__):
+    return RN.smem_bytes()

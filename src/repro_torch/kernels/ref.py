@@ -135,3 +135,15 @@ def ssm_scan_seq(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
         h = a[:, t] * h + bx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + w) over the last dim, in float32,
+    cast to x's type.  x: [..., D]; w: [D] in its own type."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)

@@ -14,7 +14,9 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fir, mriq
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rglru_scan as RS
+from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssm_scan as SS
+from repro_torch.kernels.ref import rmsnorm_plain
 
 FIR_TOL = 3e-4
 MRIQ_TOL = 3e-3
@@ -28,6 +30,9 @@ DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-6}
 # the same float32 state, so they differ only by the rounding of y (or
 # h_all) to bf16, one ulp of values up to ~4
 SCAN_TOL = {torch.bfloat16: 2e-2}
+# rmsnorm: bf16 2e-2, the tolerance of tests/test_kernels.py (one rounding
+# of the output to bf16); float32 1e-5 (the order of the row's sum)
+NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -232,3 +237,95 @@ def test_flash_kernel_at_head_dim_256_on_cuda(cuda_device, s, dtype, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     with pytest.raises(ValueError):              # 512 threads: refused
         FA.flash_attention(q, k, v, block_q=128, block_k=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,w_dtype", [
+    ((1, 2048, 5120), torch.bfloat16, torch.bfloat16),   # Mistral's prefill
+    ((1, 2080, 4096), torch.bfloat16, torch.bfloat16),   # falcon-mamba's
+    ((1, 2080, 2560), torch.bfloat16, torch.bfloat16),   # recurrentgemma's
+    ((4, 1, 5120), torch.bfloat16, torch.bfloat16),      # a decode step
+    ((9, 300), torch.bfloat16, torch.bfloat16),          # rows off 16 bytes
+    ((4, 100, 512), torch.bfloat16, torch.float32),      # f32 w, bf16 x
+    ((2, 3, 5, 128), torch.float32, torch.float32),
+    ((9, 300), torch.float32, torch.float32),
+    ((3, 20000), torch.bfloat16, torch.bfloat16),        # rows past registers
+    ((2, 5120), torch.float32, torch.float32),           # the same in f32
+])
+def test_rmsnorm_kernel_matches_plain_on_cuda(cuda_device, shape, dtype,
+                                              w_dtype):
+    rng = np.random.default_rng(shape[-1])
+    x = _normal(rng, shape, dtype, cuda_device)
+    w = _normal(rng, (shape[-1],), w_dtype, cuda_device) * 0.1
+    before = RN.rmsnorm.launches
+    got = RN.rmsnorm(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert RN.rmsnorm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == x.dtype
+    tol = NORM_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, w, 1e-5).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_strided_rows_and_refusals(cuda_device):
+    rng = np.random.default_rng(1)
+    wide = _normal(rng, (9, 320), torch.bfloat16, cuda_device)
+    x = wide[:, :300]                       # row stride 320: no copy
+    w = _normal(rng, (300,), torch.bfloat16, cuda_device)
+    got = RN.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+    before = RN.rmsnorm.launches
+    with pytest.raises(ValueError):         # last dim not contiguous
+        RN.rmsnorm(wide.t(), _normal(rng, (9,), torch.bfloat16, cuda_device))
+    with pytest.raises(ValueError):         # leading dims not one row axis
+        RN.rmsnorm(_normal(rng, (4, 6, 64), torch.bfloat16,
+                           cuda_device).transpose(0, 1), w[:64].contiguous())
+    with pytest.raises(TypeError):
+        RN.rmsnorm(x.half(), w)
+    assert RN.rmsnorm.launches == before
+
+
+def _reduced_mistral(device, seq=32):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.regions import Impl
+    from repro_torch.models import factory as F
+    cfg = get_config("mistral-nemo-12b").reduced()
+    params = F.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    fwd = F.make_forward(cfg, Impl())
+    tokens = torch.from_numpy(F.synthetic_batch(cfg, 1, seq, seed=1)["tokens"])
+    return (lambda t: fwd(params, {"tokens": t})), (tokens.to(device),)
+
+
+@pytest.mark.cuda
+def test_capture_on_cuda_fake_tensors(cuda_device):
+    """The capture of a forward whose weights live on the card: they become
+    constants (references), the unembedding takes its card-only bf16 x bf16
+    -> float32 product, and the graph replays on the card."""
+    from repro_torch.core import extract as E
+    fn, args = _reduced_mistral(cuda_device)
+    report = E.extract(fn, args, name="mistral-cuda")
+    assert set(report.families) == {"attn_core", "mlp_core", "rmsnorm",
+                                    "rmsnorm+mlp_core"}, report.summary()
+    gm = report.graph_module
+    assert any(str(n.target) == "aten.mm.dtype" for n in gm.graph.nodes)
+    torch.testing.assert_close(gm(*args), fn(*args), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_discovered_mistral_rmsnorm_hopper_on_cuda(cuda_device):
+    from repro_torch.core import extract as E
+    from repro_torch.core.regions import Impl
+    fn, args = _reduced_mistral(cuda_device)
+    prog = E.discover(fn, args, name="mistral-cuda")
+    ref = prog.build(Impl())(*args)
+    before = RN.rmsnorm.launches
+    got = prog.build(Impl({"rmsnorm": "hopper"}))(*args)
+    torch.cuda.synchronize()
+    # 2 layers x 2 norms + the final norm
+    assert RN.rmsnorm.launches == before + 5
+    assert bool(torch.isfinite(got).all())
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) / scale < 5e-2

@@ -44,6 +44,9 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b"
 def test_no_source_imports_jax_or_the_jax_package():
     sources = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(sources) >= 20
+    names = {p.relative_to(SRC).as_posix() for p in sources}
+    assert {"repro_torch/core/extract.py", "repro_torch/kernels/rmsnorm.py",
+            "repro_torch/launch/loop_extraction.py"} <= names
     sources.append(SRC.parent / "chip_smoke.py")       # the card's smoke test
     offenders = [f"{p.relative_to(SRC.parent)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
@@ -57,7 +60,7 @@ def _entry_points():
     from repro_torch.apps import from_numpy, mriq, tdfir
     from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.core.device import resolve_device
-    from repro_torch.launch import fig4_offload, serve
+    from repro_torch.launch import fig4_offload, loop_extraction, serve
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.offload_program import make_lm_program
     x = np.zeros((2, 8), np.complex64)
@@ -79,6 +82,7 @@ def _entry_points():
                                           "--reduced"]),
         "serve.main recurrentgemma-2b": lambda: serve.main(
             ["--arch", "recurrentgemma-2b", "--reduced"]),
+        "loop_extraction.main": lambda: loop_extraction.main(["--reduced"]),
     }
 
 

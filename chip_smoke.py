@@ -20,7 +20,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    of a tile; rmsnorm: 9 rows of D=300, off the 16-byte grain); times
    kernel, plain version and, where one PyTorch call computes the same
    function, that call with CUDA events; prints the bound and each
-   kernel's registers and shared memory beside the Step-3 estimate.
+   kernel's registers and shared memory beside the Step-3 estimate.  The
+   attention kernels are timed from their C entry points on arguments
+   checked and allocated once, as a CUDA-graph replay of the launches
+   (the host's enqueue cost out; SDPA timed the same way) beside the eager
+   C-entry and wrapper-call times, at every bf16 tile point; the bf16
+   flash instances must show HGMMA and UTMALDG in ``cuobjdump -sass``, and
+   the decode grid at the serving shape at least 264 blocks.
 4. planner — the main path: the five-step planner on tdFIR (HPEC set 1)
    and MRI-Q (sampled at its bench size, analysed at Parboil "large"),
    strategy staged, d=4, against a temporary plan cache; a second plan is
@@ -75,6 +81,8 @@ from __future__ import annotations
 
 import gc
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +121,11 @@ SERVE_NEW_TOKENS = 16
 LOGIT_NOISE_FACTOR = 3.0
 LOGIT_TOL_MIN = 0.05
 EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
+# the first versions of the attention kernels (scalar FP32 FMAs over float32
+# tiles; one decode block per (b, kv head)) at phase 3's timed shapes, from
+# an earlier run on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+FLASH_FIRST_MS = {"serve S=2048": 1.5621, "hybrid S=2048": 1.1555}
+DECODE_FIRST_MS = 0.2099
 
 ROOT = Path(__file__).resolve().parent
 
@@ -138,6 +151,35 @@ def cuda_ms(torch, fn, calls: int, groups: int = 7) -> tuple[float, str]:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times), f"[{min(times):.4f}-{max(times):.4f}]"
+
+
+def graph_ms(torch, make, calls: int, groups: int = 7) -> tuple[float, str]:
+    """Median over ``groups`` replays of a CUDA graph of ``calls`` launches
+    made by ``make(stream)()`` on its capture stream, per launch, and the
+    range; the host's enqueue cost is out of the timing (a launch from the
+    host costs more than these kernels take at the small shapes)."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn = make(stream.cuda_stream)
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(times), f"[{min(times):.4f}-{max(times):.4f}]"
 
 
@@ -255,6 +297,58 @@ def rmsnorm_bound_ms(rows, d, elem, w_elem) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_entries(report: str) -> list[tuple[str, int, int, int, int]]:
+    """(entry function, registers, stack-frame bytes, spill-store bytes,
+    spill-load bytes) of each kernel in a ``ptxas -v`` report."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *frame))
+            name, frame = None, (0, 0, 0)
+    return out
+
+
+def sass_counts(library: Path, kernel: str, opcodes: tuple[str, ...]):
+    """{entry function: {opcode: count}} over the functions of ``library``
+    whose name contains ``kernel``, from ``cuobjdump -sass``; None when the
+    toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if kernel in name:
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", part))
+                            for op in opcodes}
+    return counts
+
+
+def held(fn, args, tensors):
+    """``fn(*args)`` as a closure that also holds ``tensors``, whose device
+    pointers ``args`` carry, so that their memory outlives the timing."""
+    def launch():
+        return fn(*args), tensors
+    return launch
+
+
+def flash_instance(name: str) -> str:
+    """'D x block_q x block_k' of a mangled flash_wgmma_kernel name."""
+    m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+    return "x".join(m.groups()) if m else name
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -317,7 +411,14 @@ def main() -> int:
     print(f"built {built or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name in _build.SOURCES:
-        print(f"-- ptxas {name}.cu --\n{_build.ptxas_report(name).strip()}")
+        entries = ptxas_entries(_build.ptxas_report(name))
+        print(f"-- ptxas {name}.cu: {len(entries)} kernels; registers "
+              f"{min(e[1] for e in entries)}-{max(e[1] for e in entries)}; "
+              f"stack frame, spill stores, spill loads (bytes) max "
+              f"{max(e[2] for e in entries)}, {max(e[3] for e in entries)}, "
+              f"{max(e[4] for e in entries)}")
+        if "setmaxnreg ignored" in _build.ptxas_report(name):
+            print(f"   ptxas: setmaxnreg ignored in {name}.cu")
 
     # ---- 3. kernels against their plain versions -----------------------
     phase("3. kernels")
@@ -430,9 +531,35 @@ def main() -> int:
     # (outputs are averages of unit normals; bf16 rounding of p and o)
     tols = {bf16: 2e-2, f32: 2e-5}
     flops_rate = {bf16: BF16_FLOPS_PER_S, f32: FP32_FLOPS_PER_S}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def flash_direct(q, k, v, window, block_q, block_k):
+        """Launches of the kernel alone, straight from its C entry point on
+        arguments checked and allocated once: ``make(stream)`` returns one
+        launch on that stream (timed eagerly and as a CUDA graph); the first
+        is held against the wrapper.  These launches are not counted."""
+        lib = FA._lib()
+        o = torch.empty_like(q)
+        b, hq, n, d = q.shape
+
+        def make(on):
+            return held(lib.flash_attention_launch, (
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+                k.shape[1], n, d, block_q, block_k, 1, window,
+                1.0 / math.sqrt(d), int(q.dtype == bf16), on), o)
+
+        _build.check(make(stream)()[0], lib, "flash_attention")
+        torch.cuda.synchronize()
+        if not torch.equal(o, FA.flash_attention(
+                q, k, v, window=window, block_q=block_q, block_k=block_k)):
+            raise AssertionError("flash_attention: direct launch and wrapper "
+                                 "differ")
+        return make
+
     flash_cases = [(f"serve S={n}", 1, 32, 8, n, 128, bf16, 0)
                    for n in SERVE_BUCKETS]
     flash_cases += [("serve S=2080 window=512", 1, 32, 8, 2080, 128, bf16, 512),
+                    ("serve S=2048 f32", 1, 32, 8, 2048, 128, f32, 0),
                     ("planner (reduced)", 2, 4, 2, 128, 16, bf16, 0),
                     ("planner (reduced) f32", 2, 4, 2, 128, 16, f32, 0),
                     ("ragged f32 window=48", 1, 8, 2, 300, 64, f32, 48)]
@@ -444,7 +571,7 @@ def main() -> int:
     flash_cases += [("hybrid planner (reduced)", 2, 4, 1, 128, 16, bf16, 32),
                     ("ragged f32 D=256 window=48", 1, 10, 1, 300, 256, f32,
                      48)]
-    flash256 = {}
+    flash256, flash_f32 = {}, {}
     for label, b, hq, hkv, n, d, dt, window in flash_cases:
         q, k, v = randn(b, hq, n, d, dtype=dt), randn(b, hkv, n, d, dtype=dt), \
             randn(b, hkv, n, d, dtype=dt)
@@ -455,69 +582,122 @@ def main() -> int:
         assert_close(torch, got.float(), want.float(), f"flash_attention {label}",
                      rtol=tol, atol=tol)
         err = max_abs_err(torch, got.float(), want.float())
+        bq, bk = FA.default_tiles(dt, d)
         line = (f"flash_attention {label} [B={b}, Hq={hq}, Hkv={hkv}, S={n}, "
-                f"D={d}] {str(dt).removeprefix('torch.')} causal: max_abs_err="
-                f"{err:.3e} (tol rtol=atol={tol})")
+                f"D={d}] {str(dt).removeprefix('torch.')} causal, tiles {bq}x"
+                f"{bk}: max_abs_err={err:.3e} (tol rtol=atol={tol})")
         elem = 2 if dt == bf16 else 4
         bound_ms, bound_by = flash_bound_ms(b, hq, hkv, n, d, elem, True,
                                             window, flops_rate[dt])
         if label.startswith(("serve", "hybrid S=")):
-            ms, ms_range = cuda_ms(torch, lambda: FA.flash_attention(
-                q, k, v, causal=True, window=window), 10)
-            line += (f"; kernel {ms:.4f} ms {ms_range}, bound "
-                     f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            calls = 10 if dt == bf16 else 3
+            make = flash_direct(q, k, v, window, bq, bk)
+            ms, ms_range = graph_ms(torch, make, calls)
+            eager_ms, _ = cuda_ms(torch, make(stream), calls)
+            call_ms, call_range = cuda_ms(torch, lambda: FA.flash_attention(
+                q, k, v, causal=True, window=window), calls)
+            line += (f"; kernel {ms:.4f} ms {ms_range} (C entry eager "
+                     f"{eager_ms:.4f}, wrapper call {call_ms:.4f} ms "
+                     f"{call_range}), bound {bound_ms * 1e3:.2f} us "
+                     f"({bound_by})")
         print(line)
-        if label == "hybrid S=2048":
+        if label in ("serve S=2048", "hybrid S=2048", "serve S=2048 f32"):
             # the window (2,048) admits every causal key at S=2,048, so
-            # causal SDPA computes the same function
+            # causal SDPA computes the same function in each case
             lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
             assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
                          rtol=tol, atol=tol)
             plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
                 q, k, v, causal=True, window=window), 3)
-            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
-                q, k, v, is_causal=True, enable_gqa=True), 20)
+            lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True), 10)
             est = precompile("attn_core", "hopper",
                              variants("attn_core")["hopper"], (q, k, v))
-            print(f"  head_dim 256: kernel {ms:.4f} ms {ms_range}  plain "
-                  f"{plain_ms:.4f} ms {plain_range}  SDPA {lib_ms:.4f} ms "
-                  f"{lib_range}  bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            earlier = FLASH_FIRST_MS.get(label)
+            print(f"  kernel {ms:.4f} ms {ms_range}"
+                  + (f" (first version {earlier} ms, an earlier run on the "
+                     f"same card model)" if earlier else "")
+                  + f"  plain {plain_ms:.4f} ms {plain_range}  SDPA "
+                  f"{lib_ms:.4f} ms {lib_range}  kernel/SDPA "
+                  f"{ms / lib_ms:.2f}x  bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}, {bound_ms / ms:.1%} of it)")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
-            print(f"  cudaFuncGetAttributes (block_k 64, head_dim 256): "
-                  f"{FA.kernel_attributes(64, 256)}; dynamic smem "
-                  f"{FA.smem_bytes(FA.DEFAULT_BLOCK_Q, FA.DEFAULT_BLOCK_K, d)}"
-                  f" B/block, {FA.threads(FA.DEFAULT_BLOCK_Q, d)} threads; "
-                  f"Step-3 estimate {est.resource_bytes:.0f} B/block")
-            flash256 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "library_ms": lib_ms}
-        if label == "serve S=2048":
-            lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
-            assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
-                         rtol=tol, atol=tol)
-            plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
-                q, k, v, causal=True), 3)
-            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
-                q, k, v, is_causal=True, enable_gqa=True), 20)
-            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
-                  f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range}  bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
-            print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
-                  f"{clocks()}")
-            est = precompile("attn_core", "hopper",
-                             variants("attn_core")["hopper"], (q, k, v))
-            print(f"  cudaFuncGetAttributes: {FA.kernel_attributes()}; dynamic "
-                  f"smem {FA.smem_bytes(FA.DEFAULT_BLOCK_Q, FA.DEFAULT_BLOCK_K, d)}"
-                  f" B/block; Step-3 estimate {est.resource_bytes:.0f} B/block")
-            rows["flash_attention"] = {
-                "name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:74",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms}
+            print(f"  cudaFuncGetAttributes ({bq}x{bk}, head_dim {d}): "
+                  f"{FA.kernel_attributes(bq, bk, d, dt)}; dynamic smem "
+                  f"{FA.smem_bytes(bq, bk, d, dt)} B/block, "
+                  f"{FA.threads(bq, d, dt)} threads; Step-3 estimate "
+                  f"{est.resource_bytes:.0f} B/block")
+            if dt == bf16:
+                sweep = {(pq, pk): graph_ms(torch, flash_direct(
+                    q, k, v, window, pq, pk), 10)[0]
+                    for pq in FA.BLOCK_QS for pk in FA.BLOCK_KS
+                    if FA.fits(pq, pk, d, dt)}
+                best = min(sweep, key=sweep.get)
+                print("  bf16 tile points (block_q x block_k: kernel ms): "
+                      + ", ".join(f"{pq}x{pk}: {t:.4f}"
+                                  for (pq, pk), t in sweep.items())
+                      + f"; best {best[0]}x{best[1]}, default {bq}x{bk}")
+            found = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+            if label == "hybrid S=2048":
+                flash256 = found
+            elif label == "serve S=2048 f32":
+                flash_f32 = found
+            else:
+                rows["flash_attention"] = {
+                    "name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:74",
+                    **found}
         del q, k, v, got, want
     torch.cuda.empty_cache()
+
+    # the bf16 instances run on the tensor cores (HGMMA) fed by TMA (UTMALDG)
+    wg = [e for e in ptxas_entries(_build.ptxas_report("flash_attention"))
+          if "flash_wgmma_kernel" in e[0]]
+    print("flash_attention bf16 instances (D x block_q x block_k: registers, "
+          "stack frame / spill bytes): " + ", ".join(
+              f"{flash_instance(n)}: {r}, {fr}/{st}" for n, r, fr, st, _ in wg))
+    counts = sass_counts(_build.library_path("flash_attention"),
+                         "flash_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    if counts is None:
+        print("cuobjdump not found beside nvcc: SASS not counted")
+    else:
+        print("flash_attention bf16 SASS (HGMMA, UTMALDG): " + ", ".join(
+            f"{flash_instance(n)}: {c['HGMMA']}, {c['UTMALDG']}"
+            for n, c in counts.items()))
+        if len(counts) != len(wg) or any(
+                not c["HGMMA"] or not c["UTMALDG"] for c in counts.values()):
+            raise AssertionError("flash_attention: a bf16 instance without "
+                                 "HGMMA or UTMALDG")
+
+    def decode_direct(q, k, v, sp, cp, window, block_k):
+        """The split and combine kernels alone from their C entry point on
+        arguments checked and allocated once (as flash_direct)."""
+        lib = DA._lib()
+        b, hq, _, d = q.shape
+        hkv, n = k.shape[1], k.shape[2]
+        splits, _ = DA.decode_splits(b * hkv, n, block_k)
+        o = torch.empty_like(q)
+        part = torch.empty(b * hq * splits * (d + 2), dtype=f32, device=dev)
+
+        def make(on):
+            return held(lib.decode_attention_launch, (
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+                cp.data_ptr(), o.data_ptr(), part.data_ptr(), b, hkv,
+                hq // hkv, n, d, block_k, splits, window, 1.0 / math.sqrt(d),
+                int(q.dtype == bf16), on), (o, part))
+
+        _build.check(make(stream)()[0], lib, "decode_attention")
+        torch.cuda.synchronize()
+        if not torch.equal(o, DA.decode_attention(q, k, v, sp, cp,
+                                                  window=window,
+                                                  block_k=block_k)):
+            raise AssertionError("decode_attention: direct launch and "
+                                 "wrapper differ")
+        return make
 
     # decode: bf16 2e-2 as above; f32 5e-6, the decode tolerance of
     # tests/test_kernels.py (float32 throughout, summation order only)
@@ -527,6 +707,7 @@ def main() -> int:
                     ("serve, empties, window=512", 4, 32, 8, 2080, 128, bf16,
                      512, True),
                     ("serve, full cache", 4, 32, 8, 2080, 128, bf16, 0, False),
+                    ("serve, empties f32", 4, 32, 8, 2080, 128, f32, 0, True),
                     ("decode_attn program (f32)", 2, 8, 2, 512, 64, f32, 0,
                      False)]
     for label, b, hq, hkv, n, d, dt, window, empties in decode_cases:
@@ -545,32 +726,65 @@ def main() -> int:
         assert_close(torch, got.float(), want.float(),
                      f"decode_attention {label}", rtol=tol, atol=tol)
         err = max_abs_err(torch, got.float(), want.float())
+        splits, per = DA.decode_splits(b * hkv, n, DA.DEFAULT_BLOCK_K)
         print(f"decode_attention {label} [B={b}, Hq={hq}, Hkv={hkv}, S={n}, "
               f"D={d}] {str(dt).removeprefix('torch.')}: max_abs_err={err:.3e} "
-              f"(tol rtol=atol={tol})")
+              f"(tol rtol=atol={tol}); grid ({splits}, {b * hkv}) = "
+              f"{splits * b * hkv} blocks, {per} tiles of "
+              f"{DA.DEFAULT_BLOCK_K} slots each")
         if label == "serve, full cache":
             lib = sdpa(q, k, v, enable_gqa=True)
             assert_close(torch, lib.float(), want.float(), "SDPA vs plain",
                          rtol=tol, atol=tol)
-            ms, ms_range = cuda_ms(torch, lambda: DA.decode_attention(
-                q, k, v, sp, cp), 50)
+            if splits * b * hkv < 2 * 132:
+                raise AssertionError("decode_attention: fewer than 264 "
+                                     "blocks at the serving shape")
+            make = decode_direct(q, k, v, sp, cp, 0, DA.DEFAULT_BLOCK_K)
+            ms, ms_range = graph_ms(torch, make, 50)
+            eager_ms, _ = cuda_ms(torch, make(stream), 100)
+            call_ms, call_range = cuda_ms(torch, lambda: DA.decode_attention(
+                q, k, v, sp, cp), 100)
             plain_ms, plain_range = cuda_ms(torch, lambda: DA.decode_attention_plain(
                 q, k, v, sp, cp), 10)
-            lib_ms, lib_range = cuda_ms(torch, lambda: sdpa(
+            lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(
                 q, k, v, enable_gqa=True), 50)
+            lib_eager_ms, _ = cuda_ms(torch, lambda: sdpa(
+                q, k, v, enable_gqa=True), 100)
             bound_ms, bound_by = decode_bound_ms(b, hq, hkv, n, d, 2,
                                                  flops_rate[dt])
-            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
-                  f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range}  bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            sweep = {bk: graph_ms(torch, decode_direct(
+                q, k, v, sp, cp, 0, bk), 50)[0]
+                for bk in DA.BLOCK_KS if DA.fits(hq // hkv, d, bk, dt)}
+            print(f"  kernel {ms:.4f} ms {ms_range} (first version "
+                  f"{DECODE_FIRST_MS} ms, an earlier run on the same card "
+                  f"model; C entry eager {eager_ms:.4f} ms; wrapper call "
+                  f"{call_ms:.4f} ms {call_range})  plain {plain_ms:.4f} ms "
+                  f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range} (eager "
+                  f"{lib_eager_ms:.4f})  kernel/SDPA {ms / lib_ms:.2f}x  "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+                  f"{bound_ms / ms:.1%} of it)")
+            print("  block_k (kernel ms, blocks): " + ", ".join(
+                f"{bk}: {t:.4f}, {DA.decode_splits(b * hkv, n, bk)[0] * b * hkv}"
+                for bk, t in sweep.items())
+                + f"; best {min(sweep, key=sweep.get)}, default "
+                f"{DA.DEFAULT_BLOCK_K}")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
             est = precompile("decode_attn", "hopper",
                              variants("decode_attn")["hopper"],
                              (q, k, v, sp, cp))
-            print(f"  cudaFuncGetAttributes: {DA.kernel_attributes()}; dynamic "
-                  f"smem {DA.smem_bytes(hq // hkv, d, DA.DEFAULT_BLOCK_K)} "
-                  f"B/block; Step-3 estimate {est.resource_bytes:.0f} B/block")
+            print(f"  cudaFuncGetAttributes (G={hq // hkv}, D={d}): "
+                  f"{DA.kernel_attributes(hq // hkv, d, dt)}; dynamic smem "
+                  f"{DA.smem_bytes(hq // hkv, d, DA.DEFAULT_BLOCK_K, dt)} "
+                  f"B/block, {DA.occupancy(hq // hkv, d, DA.DEFAULT_BLOCK_K, dt)}"
+                  f" blocks/SM; Step-3 estimate {est.resource_bytes:.0f} "
+                  f"B/block")
+            print("  ptxas (kernel: registers, stack frame / spill bytes): "
+                  + ", ".join(f"{re.sub(r'_ZN.*?(decode_\w+?_kernel)', r'\1', n)[:50]}"
+                              f": {r}, {fr}/{st}"
+                              for n, r, fr, st, _ in ptxas_entries(
+                                  _build.ptxas_report("decode_attention"))
+                              if "combine" in n or "Li4ELi128E" in n))
             rows["decode_attention"] = {
                 "name": "decode_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -682,7 +896,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(out.view(x.shape), RN.rmsnorm(x, w, eps=1e-5)):
             raise AssertionError("rmsnorm: direct launch and wrapper differ")
-        return lambda: lib.rmsnorm_launch(*args)
+        return held(lib.rmsnorm_launch, args, out)
 
     # rmsnorm at the rows the norms of phases 6, 8 and 9 and of phase 10's
     # discovered Mistral see (prefill buckets, a decode step) and 9 rows of
@@ -997,7 +1211,8 @@ def main() -> int:
     print(f"flash_attention launches: phase 6 {serve_launches['flash_attention']}"
           f" (head_dim 128), phase 9 {hybrid_launches['flash_attention']} "
           f"(head_dim 256); at head_dim 256 [1, 10/1, 2,048, 256] bf16 window "
-          f"2,048: {json.dumps(flash256)}")
+          f"2,048: {json.dumps(flash256)}; the float32 instance at [1, 32/8, "
+          f"2,048, 128]: {json.dumps(flash_f32)}")
 
     # ---- 10. static extraction of an unannotated model (slice-4 path) ---
     phase("10. extract")

@@ -4,14 +4,17 @@ hand-written CUDA kernel ``csrc/flash_attention.cu``.
 :func:`flash_attention` launches the kernel on CUDA tensors and runs
 :func:`flash_attention_plain`, the same function in plain PyTorch, on CPU
 or meta tensors.  On a CUDA tensor it launches or raises; it never falls
-back.  ``block_q`` / ``block_k`` are the kernel's tile sizes, instantiated
-for the values in :data:`BLOCK_QS` / :data:`BLOCK_KS`; S need not be a
-multiple of either (the kernel masks its ragged last tiles).
+back.  ``block_q`` / ``block_k`` are the kernel's tile sizes; S need not be
+a multiple of either (the kernel masks its ragged last tiles).  One C entry
+point serves two bodies: bf16 runs on the tensor cores (``wgmma`` fed by
+TMA, tiles kept bf16 in shared memory, ``block_q`` and ``block_k`` in
+{64, 128}); float32 runs scalar FP32 FMAs over float32 tiles.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 
 import torch
@@ -19,34 +22,76 @@ import torch
 from repro_torch.kernels import SMEM_PER_BLOCK, _build
 
 NEG_INF = -1e30
-BLOCK_QS = (32, 64, 128)         # query rows per block (see threads())
+BLOCK_QS = (32, 64, 128)         # query rows per block (the tuning axis)
 BLOCK_KS = (32, 64, 128)         # keys per shared-memory tile
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head widths the source instantiates
-MAX_THREADS = 256
-DEFAULT_BLOCK_Q = 64
-DEFAULT_BLOCK_K = 64
-_PAD = 4                         # floats of padding per shared-memory row
+WGMMA_BLOCK_QS = (64, 128)       # bf16: one consumer warpgroup per 64 rows
+WGMMA_BLOCK_KS = (64, 128)       # bf16: the S = Q K^T product's width
+STAGES = 2                       # bf16: K/V tiles in the shared-memory ring
+MAX_THREADS = 256                # float32 body
+# the best bf16 point at [1, 32/8, 2,048, 128] (chip_smoke.py phase 3); a
+# call without tiles takes default_tiles(dtype, head_dim)
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+_PAD = 4                         # float32: floats of padding per row
+_ALIGN = 1024                    # bf16: room to align the tiles to 1 KB
+_BARRIERS = 128                  # bf16: the ring's mbarriers
+_PRODUCER = 128                  # bf16: the producer warpgroup
 
 
-def smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block: float32 q tile [block_q, D + 4],
-    k and v tiles [block_k, D + 4], probabilities [block_q, block_k + 1]."""
+def _bf16(dtype) -> bool:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    return dtype == torch.bfloat16
+
+
+def smem_bytes(block_q: int, block_k: int, head_dim: int, dtype) -> int:
+    """Dynamic shared memory of one block.  bf16: the Q tile and STAGES K
+    and V tiles, all bf16, the barriers and 1 KB of alignment room.
+    float32: the q tile [block_q, D + 4], k and v tiles [block_k, D + 4]
+    and the probabilities [block_q, block_k + 1], all float32."""
+    if _bf16(dtype):
+        return (2 * head_dim * (block_q + 2 * STAGES * block_k) + _ALIGN
+                + _BARRIERS)
     ld = head_dim + _PAD
     return 4 * (block_q * ld + 2 * block_k * ld + block_q * (block_k + 1))
 
 
-def threads(block_q: int, head_dim: int) -> int:
-    """Threads of one block: 4 query rows per thread, 8 threads per row
-    group (16 at head_dim 256, where 8 would need 128 accumulators each)."""
+def threads(block_q: int, head_dim: int, dtype) -> int:
+    """Threads of one block.  bf16: a warpgroup (128) per 64 query rows and
+    the producer warpgroup.  float32: 4 query rows per thread, 8 threads per
+    row group (16 at head_dim 256, where 8 would need 128 accumulators)."""
+    if _bf16(dtype):
+        return block_q // 64 * 128 + _PRODUCER
     return block_q // 4 * (16 if head_dim >= 256 else 8)
 
 
-def fits(block_q: int, block_k: int, head_dim: int) -> bool:
-    """Whether the source instantiates head_dim and the block fits Hopper's
-    shared memory and the kernel's thread limit."""
-    return (head_dim in HEAD_DIMS
-            and threads(block_q, head_dim) <= MAX_THREADS
-            and smem_bytes(block_q, block_k, head_dim) <= SMEM_PER_BLOCK)
+def fits(block_q: int, block_k: int, head_dim: int, dtype) -> bool:
+    """Whether the source instantiates the point for this type and head
+    width and the block fits Hopper's shared memory (and, float32, the
+    kernel's thread limit)."""
+    if head_dim not in HEAD_DIMS or block_k not in BLOCK_KS:
+        return False
+    if _bf16(dtype):
+        return (block_q in WGMMA_BLOCK_QS and block_k in WGMMA_BLOCK_KS
+                and smem_bytes(block_q, block_k, head_dim, dtype)
+                <= SMEM_PER_BLOCK)
+    return (block_q in BLOCK_QS
+            and threads(block_q, head_dim, dtype) <= MAX_THREADS
+            and smem_bytes(block_q, block_k, head_dim, dtype)
+            <= SMEM_PER_BLOCK)
+
+
+def default_tiles(dtype, head_dim: int) -> tuple[int, int]:
+    """(block_q, block_k) of a call that names none: the defaults where
+    they fit (or where nothing does), else the fitting point with the
+    largest tile, the larger block_q first — (128, 64) for bf16 at
+    head_dim 256, (128, 64) and (64, 64) for float32 at 128 and 256."""
+    ok = [(bq, bk) for bq, bk in itertools.product(BLOCK_QS, BLOCK_KS)
+          if fits(bq, bk, head_dim, dtype)]
+    if not ok or (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K) in ok:
+        return DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K
+    return max(ok, key=lambda p: (p[0] * p[1], p[0]))
 
 
 def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -86,32 +131,45 @@ def _lib() -> ctypes.CDLL:
     _build.declare(lib, {
         "flash_attention_launch": (i, (vp, vp, vp, vp, i, i, i, i, i, i, i,
                                        i, i, f, i, vp)),
-        "flash_attention_attributes": (i, (i, i, ip, ip, ip)),
-        "flash_attention_smem_bytes": (ctypes.c_longlong, (i, i, i)),
+        "flash_attention_attributes": (i, (i, i, i, i, ip, ip, ip)),
+        "flash_attention_smem_bytes": (ctypes.c_longlong, (i, i, i, i)),
+        "flash_attention_threads": (i, (i, i, i, i)),
     })
-    for bq in BLOCK_QS:
-        for bk in BLOCK_KS:
-            if lib.flash_attention_smem_bytes(bq, bk, 128) != smem_bytes(bq, bk, 128):
-                raise RuntimeError("csrc/flash_attention.cu and "
-                                   "kernels/flash_attention.py disagree on "
-                                   "the shared-memory layout")
+    # every point the tuning space may propose: the C figures equal the
+    # Python ones, and the bf16 instances are exactly the fitting points
+    for dtype, d, bq, bk in itertools.product(
+            (torch.bfloat16, torch.float32), HEAD_DIMS, BLOCK_QS, BLOCK_KS):
+        flag = int(dtype == torch.bfloat16)
+        c = (lib.flash_attention_smem_bytes(bq, bk, d, flag),
+             lib.flash_attention_threads(bq, bk, d, flag))
+        if fits(bq, bk, d, dtype):
+            agree = c == (smem_bytes(bq, bk, d, dtype), threads(bq, d, dtype))
+        else:
+            agree = not flag or c == (-1, -1)
+        if not agree:
+            raise RuntimeError(
+                f"csrc/flash_attention.cu and kernels/flash_attention.py "
+                f"disagree on the {dtype} block at head_dim {d}, block_q "
+                f"{bq}, block_k {bk}: C (smem, threads) {c}")
     return lib
 
 
-def kernel_attributes(block_k: int = DEFAULT_BLOCK_K,
-                      head_dim: int = 128) -> dict:
-    """``cudaFuncGetAttributes`` of the instance for (block_k, head_dim)
-    (its shared memory is dynamic: see :func:`smem_bytes`)."""
+def kernel_attributes(block_q: int, block_k: int, head_dim: int,
+                      dtype) -> dict:
+    """``cudaFuncGetAttributes`` of the instance that runs the point (its
+    shared memory is dynamic: see :func:`smem_bytes`)."""
     return _build.func_attributes(_lib(), "flash_attention_attributes",
-                                  block_k, head_dim)
+                                  block_q, block_k, head_dim,
+                                  int(_bf16(dtype)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                    block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """q: [B, Hq, S, D]; k/v: [B, Hkv, S, D], Hq a multiple of Hkv; all
-    bf16 or all float32, contiguous.  Returns [B, Hq, S, D] in q's type."""
+    bf16 or all float32, contiguous.  Returns [B, Hq, S, D] in q's type.
+    Without tiles it takes :func:`default_tiles` of q's type and D."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q [B, Hq, S, D] and k/v "
                          f"[B, Hkv, S, D], got {tuple(q.shape)}, "
@@ -131,6 +189,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, "
                          f"v on {v.device}")
+    if block_q is None or block_k is None:
+        dq, dk = default_tiles(q.dtype, d)
+        block_q = dq if block_q is None else block_q
+        block_k = dk if block_k is None else block_k
     if block_q not in BLOCK_QS or block_k not in BLOCK_KS:
         raise ValueError(f"flash_attention: block_q={block_q} / block_k="
                          f"{block_k} not in {BLOCK_QS} / {BLOCK_KS}")
@@ -140,12 +202,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if not fits(block_q, block_k, d):
-        raise ValueError(f"flash_attention: head_dim {d} with block_q="
-                         f"{block_q}, block_k={block_k} exceeds the kernel's "
-                         f"limits (head_dim in {HEAD_DIMS}, at most "
-                         f"{MAX_THREADS} threads, shared memory <= "
-                         f"{SMEM_PER_BLOCK} B)")
+    if not fits(block_q, block_k, d, q.dtype):
+        raise ValueError(
+            f"flash_attention: head_dim {d} with block_q={block_q}, block_k="
+            f"{block_k} in {q.dtype} exceeds the kernel's limits (head_dim in "
+            f"{HEAD_DIMS}; bf16: block_q in {WGMMA_BLOCK_QS}, block_k in "
+            f"{WGMMA_BLOCK_KS}; float32: at most {MAX_THREADS} threads; "
+            f"shared memory <= {SMEM_PER_BLOCK} B)")
     if b * hq > 65_535 or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: B * Hq > 65,535 or a pointer not "
                          "16-byte aligned")

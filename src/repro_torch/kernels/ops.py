@@ -24,7 +24,6 @@ import torch
 
 from repro_torch.core.regions import TuningSpace, register_variant
 from repro_torch.core.resources import register_smem_estimator
-from repro_torch.kernels import SMEM_PER_BLOCK
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rglru_scan as RS
@@ -45,26 +44,36 @@ def _dim(args, idx: int, axis: int):
 # attn_core: flash attention
 # ---------------------------------------------------------------------------
 def _attn_tile_ok(p, args) -> bool:
+    # bf16 admits the points its wgmma body is built for (block_q and
+    # block_k in {64, 128}), float32 the scalar body's; both within shared
+    # memory
     d = _dim(args, 0, 3)
     if d is None:
         return True
-    return FA.fits(p["block_q"], p["block_k"], d)
+    return FA.fits(p["block_q"], p["block_k"], d, args[0].dtype)
 
 
+# The bare gene runs the kernel's default tiles for the type and head width
+# (FA.default_tiles): the declared defaults wherever they fit, so a gene
+# equal to them and the bare gene run the same point.
 @register_variant("attn_core", "hopper", tuning=TuningSpace(
     axes={"block_q": FA.BLOCK_QS, "block_k": FA.BLOCK_KS},
     defaults={"block_q": FA.DEFAULT_BLOCK_Q, "block_k": FA.DEFAULT_BLOCK_K},
     validity=_attn_tile_ok))
-def attn_core_hopper(q, k, v, *, causal=True, window=0,
-                     block_q=FA.DEFAULT_BLOCK_Q, block_k=FA.DEFAULT_BLOCK_K):
+def attn_core_hopper(q, k, v, *, causal=True, window=0, block_q=None,
+                     block_k=None):
     return FA.flash_attention(q, k, v, causal=causal, window=window,
                               block_q=block_q, block_k=block_k)
 
 
 @register_smem_estimator("attn_core", "hopper")
-def _attn_hopper_smem(q, k, v, *, block_q=FA.DEFAULT_BLOCK_Q,
-                      block_k=FA.DEFAULT_BLOCK_K, **_):
-    return FA.smem_bytes(block_q, block_k, q.shape[-1])
+def _attn_hopper_smem(q, k, v, *, block_q=None, block_k=None, **_):
+    d = q.shape[-1]
+    if block_q is None or block_k is None:
+        dq, dk = FA.default_tiles(q.dtype, d)
+        block_q = dq if block_q is None else block_q
+        block_k = dk if block_k is None else block_k
+    return FA.smem_bytes(block_q, block_k, d, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +100,12 @@ def decode_attn_ref(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0):
 
 
 def _decode_tile_ok(p, args) -> bool:
+    # the ring of STAGES k and v tiles in the cache's type within shared
+    # memory, and a group and row width the kernel takes
     d, hq, hkv = _dim(args, 0, 3), _dim(args, 0, 1), _dim(args, 1, 1)
     if None in (d, hq, hkv):
         return True
-    return DA.smem_bytes(hq // hkv, d, p["block_k"]) <= SMEM_PER_BLOCK
+    return DA.fits(hq // hkv, d, p["block_k"], args[1].dtype)
 
 
 @register_variant("decode_attn", "hopper", tuning=TuningSpace(
@@ -109,7 +120,8 @@ def decode_attn_hopper(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
 
 @register_smem_estimator("decode_attn", "hopper")
 def _decode_hopper_smem(q, k_cache, *_, block_k=DA.DEFAULT_BLOCK_K, **__):
-    return DA.smem_bytes(q.shape[1] // k_cache.shape[1], q.shape[-1], block_k)
+    return DA.smem_bytes(q.shape[1] // k_cache.shape[1], q.shape[-1], block_k,
+                         k_cache.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -96,8 +96,8 @@ def _normal(rng, shape, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,s,d,dtype,window,bq,bk", [
     (1, 32, 8, 2080, 128, torch.bfloat16, 0, 64, 64),     # largest bucket
-    (1, 32, 8, 2080, 128, torch.bfloat16, 512, 128, 32),  # windowed
-    (2, 4, 2, 128, 16, torch.bfloat16, 0, 32, 128),       # planner's shape
+    (1, 32, 8, 2080, 128, torch.bfloat16, 512, 128, 64),  # windowed
+    (2, 4, 2, 128, 16, torch.bfloat16, 0, 64, 128),       # planner's shape
     (1, 8, 2, 300, 64, torch.float32, 48, 64, 64),        # ragged, f32
     (1, 32, 8, 8, 128, torch.bfloat16, 0, 64, 64),        # smallest bucket
 ])
@@ -120,7 +120,7 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, b, hq, hkv, s, d,
 @pytest.mark.parametrize("b,hq,hkv,s,d,dtype,window,bk", [
     (4, 32, 8, 2080, 128, torch.bfloat16, 0, 128),
     (4, 32, 8, 2080, 128, torch.bfloat16, 300, 64),
-    (2, 8, 2, 512, 64, torch.float32, 0, 256),
+    (2, 8, 2, 512, 64, torch.float32, 0, 128),
     (3, 4, 2, 100, 16, torch.float32, 20, 128),
 ])
 def test_decode_kernel_matches_plain_on_cuda(cuda_device, b, hq, hkv, s, d,
@@ -140,6 +140,85 @@ def test_decode_kernel_matches_plain_on_cuda(cuda_device, b, hq, hkv, s, d,
     want = DA.decode_attention_plain(q, k, v, sp, cur, window=window)
     tol = DECODE_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("s", [8, 300, 2080])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_bf16_every_tile_point_on_cuda(cuda_device, d, s, window):
+    """The wgmma body at every tile point the bf16 tuning space admits at
+    this head width: S below one tile, ragged, and the largest bucket;
+    causal, with and without a window."""
+    rng = np.random.default_rng(d + s + window)
+    q = _normal(rng, (1, 4, s, d), torch.bfloat16, cuda_device)
+    k = _normal(rng, (1, 2, s, d), torch.bfloat16, cuda_device)
+    v = _normal(rng, (1, 2, s, d), torch.bfloat16, cuda_device)
+    want = FA.flash_attention_plain(q, k, v, window=window)
+    points = [(bq, bk) for bq in FA.BLOCK_QS for bk in FA.BLOCK_KS
+              if FA.fits(bq, bk, d, torch.bfloat16)]
+    assert len(points) == (2 if d == 256 else 4)
+    for bq, bk in points:
+        before = FA.flash_attention.launches
+        got = FA.flash_attention(q, k, v, window=window, block_q=bq,
+                                 block_k=bk)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2, msg=lambda m: f"{bq}x{bk}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128, 256])
+def test_flash_bf16_bidirectional_on_cuda(cuda_device, d):
+    rng = np.random.default_rng(d)
+    q = _normal(rng, (2, 4, 300, d), torch.bfloat16, cuda_device)
+    k = _normal(rng, (2, 1, 300, d), torch.bfloat16, cuda_device)
+    v = _normal(rng, (2, 1, 300, d), torch.bfloat16, cuda_device)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case,b,hq,hkv,s,d,window,bk", [
+    ("S < block_k", 2, 8, 2, 40, 64, 0, 128),
+    ("S = 1", 3, 8, 2, 1, 64, 0, 64),
+    ("empties", 4, 32, 8, 700, 128, 0, 64),
+    ("window", 4, 32, 8, 700, 128, 100, 64),
+    ("all masked", 2, 8, 2, 300, 64, 0, 64),
+    ("serving", 4, 32, 8, 2080, 128, 0, 64),
+])
+def test_decode_split_k_edges_on_cuda(cuda_device, dtype, case, b, hq, hkv, s,
+                                      d, window, bk):
+    rng = np.random.default_rng(s + d)
+    q = _normal(rng, (b, hq, 1, d), dtype, cuda_device)
+    k = _normal(rng, (b, hkv, s, d), dtype, cuda_device)
+    v = _normal(rng, (b, hkv, s, d), dtype, cuda_device)
+    sp = torch.arange(s, dtype=torch.int32, device=cuda_device).repeat(b, 1)
+    cur = torch.full((b,), s - 1, dtype=torch.int32, device=cuda_device)
+    if case in ("empties", "window"):
+        for i, n in enumerate((s, s - 3, s // 2, 5)[:b]):
+            sp[i, n:] = -1
+            cur[i] = n - 1
+    if case == "all masked":
+        sp[0] = -1                       # row 0: every slot empty
+    if not DA.fits(hq // hkv, d, bk, dtype):
+        bk = 64
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, sp, cur, window=window, block_k=bk)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    want = DA.decode_attention_plain(q, k, v, sp, cur, window=window)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if case == "serving":
+        assert DA.decode_splits(b * hkv, s, bk)[0] * b * hkv >= 264
 
 
 @pytest.mark.cuda
@@ -219,7 +298,7 @@ def test_rglru_kernel_matches_plain_on_cuda(cuda_device, b, s, d, dtype, bc,
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,dtype,window,bq,bk", [
     (2080, torch.bfloat16, 2048, 64, 64),    # recurrentgemma's local attention
-    (2048, torch.bfloat16, 2048, 32, 64),
+    (2048, torch.bfloat16, 2048, 128, 64),
     (300, torch.float32, 48, 64, 32),        # ragged, windowed, f32
 ])
 def test_flash_kernel_at_head_dim_256_on_cuda(cuda_device, s, dtype, window,
@@ -235,7 +314,7 @@ def test_flash_kernel_at_head_dim_256_on_cuda(cuda_device, s, dtype, window,
     want = FA.flash_attention_plain(q, k, v, window=window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    with pytest.raises(ValueError):              # 512 threads: refused
+    with pytest.raises(ValueError):   # bf16: no block_k 32; f32: 512 threads
         FA.flash_attention(q, k, v, block_q=128, block_k=32)
 
 

@@ -17,6 +17,7 @@ from repro_torch.core.intensity import analyze_region
 from repro_torch.core.plan_cache import (PlanCache, measurement_cache_key,
                                          plan_cache_key)
 from repro_torch.core.planner import AutoOffloader, PlannerConfig
+from repro_torch.core.regions import tuning_space
 from repro_torch.models.offload_program import make_lm_program
 
 ARCH = "mistral-nemo-12b"
@@ -109,7 +110,12 @@ def test_decode_program_tuned_plan_measures_every_fitting_tile(tmp_path):
                         max_measurements=8)
     report = AutoOffloader(cfg).plan(prog, cache=PlanCache(tmp_path / "p.json"))
     seen = sorted(str(m.mapping()["decode_attn"]) for m in report.measurements)
-    assert len(seen) == 3 and report.search_space == 3
+    # float32 at head_dim 64: block_k 64 and 128 fit two stages of k and v
+    # tiles in shared memory, 256 (256 KB) does not
+    fitting = tuning_space("decode_attn", "hopper").size(
+        prog.regions[0].analysis_args)
+    assert fitting == 2
+    assert len(seen) == fitting and report.search_space == fitting
 
 
 # ---------------------------------------------------------------------------

@@ -238,9 +238,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_tuning_spaces_and_step3_estimates():
     """The hopper variants' tile genes: the ssm predicate admits whole-warp
-    blocks of at most 256 threads (block_c * N / 2); flash admits head_dim 256
-    at block_q <= 64 within shared memory; both scans keep their chunks in
-    registers (0 bytes of shared memory)."""
+    blocks of at most 256 threads (block_c * N / 2); both scans keep their
+    chunks in registers (0 bytes of shared memory).  Flash at head_dim 256:
+    ``test_flash_tiles_at_head_dim_256``."""
     meta = torch.empty((1, 4096, 8192, 16), dtype=torch.bfloat16,
                        device="meta")
     args = (meta, meta,
@@ -254,16 +254,35 @@ def test_tuning_spaces_and_step3_estimates():
                      args)
     assert est.lower_ok and est.resource_bytes == 0
     assert not SS.fits(64, 16, 16) and not SS.fits(4, 16, 8)  # 512 / 16 threads
-    q = torch.empty((1, 10, 4096, 256), dtype=torch.bfloat16, device="meta")
-    kv = torch.empty((1, 1, 4096, 256), dtype=torch.bfloat16, device="meta")
-    fpts = tuning_space("attn_core", "hopper").points((q, kv, kv))
-    assert {(p["block_q"], p["block_k"]) for p in fpts} == {
-        (32, 32), (32, 64), (64, 32), (64, 64)}
-    assert FA.smem_bytes(64, 64, 256) == 216_320 and FA.fits(64, 64, 256)
-    assert not FA.fits(128, 32, 256)                 # 512 threads
     a = torch.empty((1, 4096, 2560), dtype=torch.bfloat16, device="meta")
     h = torch.empty((1, 2560), device="meta")
     assert tuning_space("rglru_scan", "hopper").size((a, a, h)) == 9
     est = precompile("rglru_scan", "hopper",
                      variants("rglru_scan")["hopper"], (a, a, h))
     assert est.lower_ok and est.resource_bytes == 0
+
+
+# recurrentgemma's local attention, head_dim 256.  bf16: the wgmma body at
+# block_q 64 or 128 and block_k 64 (Q up to 64 KB and two stages of K and V,
+# 128 KB; block_k 128 would need 256 KB).  float32: the scalar body at
+# block_q <= 64 (16 threads per row group: 512 threads at 128).
+@pytest.mark.parametrize("dtype,points,smem,refused", [
+    (torch.bfloat16, {(64, 64), (128, 64)}, {(128, 64): 197_760},
+     [(64, 128), (32, 64)]),
+    (torch.float32, {(32, 32), (32, 64), (64, 32), (64, 64)},
+     {(64, 64): 216_320}, [(128, 32)]),
+])
+def test_flash_tiles_at_head_dim_256(dtype, points, smem, refused):
+    q = torch.empty((1, 10, 4096, 256), dtype=dtype, device="meta")
+    kv = torch.empty((1, 1, 4096, 256), dtype=dtype, device="meta")
+    fpts = tuning_space("attn_core", "hopper").points((q, kv, kv))
+    assert {(p["block_q"], p["block_k"]) for p in fpts} == points
+    for (bq, bk), n in smem.items():
+        assert FA.smem_bytes(bq, bk, 256, dtype) == n
+        assert FA.fits(bq, bk, 256, dtype)
+    assert not any(FA.fits(bq, bk, 256, dtype) for bq, bk in refused)
+    assert FA.default_tiles(dtype, 256) in points
+    est = precompile("attn_core", "hopper", variants("attn_core")["hopper"],
+                     (q, kv, kv))
+    assert est.lower_ok and est.resource_bytes == FA.smem_bytes(
+        *FA.default_tiles(dtype, 256), 256, dtype)

@@ -21,18 +21,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    kernel, plain version and, where one PyTorch call computes the same
    function, that call with CUDA events; prints the bound and each
    kernel's registers and shared memory beside the Step-3 estimate.  The
-   attention kernels are timed from their C entry points on arguments
-   checked and allocated once, as a CUDA-graph replay of the launches
-   (the host's enqueue cost out; SDPA timed the same way) beside the eager
-   C-entry and wrapper-call times, at every bf16 tile point; the bf16
-   flash instances must show HGMMA and UTMALDG in ``cuobjdump -sass``, and
-   the decode grid at the serving shape at least 264 blocks.
+   kernels (rmsnorm aside) are timed from their C entry points on
+   arguments checked and allocated once, as a CUDA-graph replay of the
+   launches (the host's enqueue cost out; SDPA and FIR's grouped conv1d
+   timed the same way) beside the wrapper-call times, at every tile point
+   of FIR, rglru_scan and bf16 flash, where each Step-3 estimate must
+   equal the kernel's shared memory (static + dynamic); the bf16 flash
+   instances must show HGMMA and UTMALDG in ``cuobjdump -sass``, and the
+   decode grid at the serving shape at least 264 blocks.  rglru_scan also
+   runs at the chunked scan's edges (S one short of, at and one past
+   time_chunk; two batch rows over three groups of chunks; exact 0s and
+   1s in a; D odd; 2,500 x 3 x 3 blocks), and its launch is replayed from
+   one CUDA graph on alternating inputs, outputs poisoned before each
+   replay, and must give the eager results bit for bit.
 4. planner — the main path: the five-step planner on tdFIR (HPEC set 1)
    and MRI-Q (sampled at its bench size, analysed at Parboil "large"),
    strategy staged, d=4, against a temporary plan cache; a second plan is
    served from the cache with zero measurements.
 5. run     — the main path continued: the ``hopper`` patterns of both apps
-   at the paper's full sizes, held against the all-offload builds.  The
+   at the paper's full sizes, held against the all-offload builds (and
+   tdFIR's timed warm, the median of 5 calls).  The
    kernels' launch counters are zeroed before phase 4 and read here: both
    must have launched.
 6. serve   — the slice-2 main path: plans ``make_lm_program
@@ -126,6 +134,12 @@ EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
 # an earlier run on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 FLASH_FIRST_MS = {"serve S=2048": 1.5621, "hybrid S=2048": 1.1555}
 DECODE_FIRST_MS = 0.2099
+# the first version of rglru_scan (one thread per channel walking time) at
+# [1, 2,080, 2,560] bf16, an eager wrapper call; of fir_filter_bank (one
+# output per thread at a time) at HPEC set 1, a CUDA-graph replay of
+# C-entry launches (PERF.md)
+RGLRU_FIRST_MS = 0.1191
+FIR_FIRST_MS = 0.0148
 
 ROOT = Path(__file__).resolve().parent
 
@@ -181,6 +195,33 @@ def graph_ms(torch, make, calls: int, groups: int = 7) -> tuple[float, str]:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return statistics.median(times), f"[{min(times):.4f}-{max(times):.4f}]"
+
+
+def replays_agree(torch, make, ins, outs, cases, what: str) -> None:
+    """Capture one launch ``make(stream)()`` in a CUDA graph and replay it
+    once per case ``(inputs, want)``: the inputs are copied into ``ins``
+    and the outputs ``outs`` set to NaN first, and each replay must write
+    that case's ``want`` bit for bit.  Cases that alternate their inputs
+    show any state one launch leaves for the next (a status word that is
+    not cleared lets a block read the previous replay's values)."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn = make(stream.cuda_stream)
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        fn()
+    for i, (inputs, want) in enumerate(cases):
+        for dst, src in zip(ins, inputs):
+            dst.copy_(src)
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            raise AssertionError(f"{what}: graph replay {i + 1} differs")
+    del graph
 
 
 def clocks() -> str:
@@ -366,7 +407,8 @@ def main() -> int:
     from repro_torch.core.plan_cache import PlanCache
     from repro_torch.core.planner import AutoOffloader, PlannerConfig
     from repro_torch.core.regions import (Impl, register_variant,
-                                          unregister_variant, variants)
+                                          tuning_space, unregister_variant,
+                                          variants)
     from repro_torch.core.resources import precompile
     from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.configs.base import get_config
@@ -432,6 +474,26 @@ def main() -> int:
         return (torch.randn(n, generator=g) * scale).to(dev)
 
     rows = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def c_entry(lib, fn: str, args, outs, want, what: str):
+        """Launches of a kernel straight from its C entry point ``fn`` on
+        arguments checked and allocated once (``args``: everything before
+        the stream; ``outs``: the tensors it writes): ``make(on)`` returns
+        one launch on stream ``on``, timed eagerly and as a CUDA graph.
+        The first launch must equal the wrapper's result ``want`` bit for
+        bit.  These launches are not counted."""
+        entry = getattr(lib, fn)
+
+        def make(on):
+            return held(entry, (*args, on), outs)
+
+        _build.check(make(stream)()[0], lib, what)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            raise AssertionError(f"{what}: direct launch and wrapper differ")
+        return make
+
     tol = 3e-4
     m, n, k = TDFIR_FULL.n_banks, TDFIR_FULL.n_samples, TDFIR_FULL.n_taps
     for label, (mm, nn, kk) in (("full", (m, n, k)), ("clamped", (m, 4000, k))):
@@ -450,24 +512,59 @@ def main() -> int:
             lib = torch.nn.functional.conv1d(xp, hf, groups=mm)[0]
             assert_close(torch, lib, want, "grouped complex conv1d", rtol=tol,
                          atol=tol)
-            ms, ms_range = cuda_ms(torch, lambda: fir.fir_filter_bank(x, h),
-                                   200)
+            def fir_entry(block_n, tap_unroll, want):
+                y = torch.empty_like(x)
+                return c_entry(fir._lib(), "fir_filter_bank_launch", (
+                    x.data_ptr(), h.data_ptr(), y.data_ptr(), mm, nn, kk,
+                    block_n, tap_unroll), (y,), (want,), "fir_filter_bank")
+
+            ms, ms_range = graph_ms(torch, fir_entry(fir.DEFAULT_BLOCK_N, 1,
+                                                     got), 200)
+            call_ms, call_range = cuda_ms(
+                torch, lambda: fir.fir_filter_bank(x, h), 200)
             plain_ms, plain_range = cuda_ms(
                 torch, lambda: fir.fir_filter_bank_plain(x, h), 20)
-            lib_ms, lib_range = cuda_ms(torch, lambda: torch.nn.functional
-                                        .conv1d(xp, hf, groups=mm), 50)
+            lib_ms, lib_range = graph_ms(torch, lambda on: lambda: torch.nn
+                                         .functional.conv1d(xp, hf, groups=mm),
+                                         50)
             bound_ms, bound_by = fir_bound_ms(mm, nn, kk)
-            attrs = fir.kernel_attributes(1)
-            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
-                  f"{plain_range}  conv1d {lib_ms:.4f} ms {lib_range}  bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  kernel {ms:.4f} ms {ms_range} (first version "
+                  f"{FIR_FIRST_MS} ms, an earlier run on the same card model;"
+                  f" wrapper call {call_ms:.4f} ms {call_range})  plain "
+                  f"{plain_ms:.4f} ms {plain_range}  conv1d {lib_ms:.4f} ms "
+                  f"{lib_range}  kernel/conv1d {ms / lib_ms:.2f}x  bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}, "
+                  f"{bound_ms / ms:.1%} of it)")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
-            est = precompile("fir_bank", "hopper",
-                             variants("fir_bank")["hopper"], (x, h))
-            print(f"  cudaFuncGetAttributes: {attrs}; dynamic smem "
-                  f"{fir.smem_bytes(fir.DEFAULT_BLOCK_N, kk)} B/block; "
-                  f"Step-3 estimate {est.resource_bytes:.0f} B/block")
+            # every tile point of the tuning space: against the plain
+            # version, timed as a graph replay, its registers and shared
+            # memory (static + dynamic) against the Step-3 estimate
+            sweep = {}
+            for pt in tuning_space("fir_bank", "hopper").points((x, h)):
+                bn, tu = pt["block_n"], pt["tap_unroll"]
+                at = fir.fir_filter_bank(x, h, block_n=bn, tap_unroll=tu)
+                assert_close(torch, at, want, f"fir_filter_bank at {bn}x{tu}",
+                             rtol=tol, atol=tol)
+                sweep[bn, tu] = graph_ms(torch, fir_entry(bn, tu, at), 200)[0]
+                attrs = fir.kernel_attributes(tu)
+                smem = attrs["static_smem_bytes"] + fir.kernel_smem_bytes(
+                    bn, kk)
+                est = precompile("fir_bank", "hopper",
+                                 variants("fir_bank")["hopper"], (x, h), pt)
+                print(f"  block_n {bn}, tap_unroll {tu}: {sweep[bn, tu]:.4f} "
+                      f"ms; cudaFuncGetAttributes {attrs}, dynamic smem "
+                      f"{fir.kernel_smem_bytes(bn, kk)} B, "
+                      f"{fir.threads(bn)} threads; Step-3 estimate "
+                      f"{est.resource_bytes:.0f} B/block")
+                if est.resource_bytes != smem:
+                    raise AssertionError(f"fir_filter_bank: Step-3 estimate "
+                                         f"{est.resource_bytes} B != the "
+                                         f"kernel's {smem} B at {bn}x{tu}")
+            best = min(sweep, key=sweep.get)
+            print(f"  tile points: best {best[0]}x{best[1]} "
+                  f"{sweep[best]:.4f} ms; default {fir.DEFAULT_BLOCK_N}x1 "
+                  f"{ms:.4f} ms")
             rows["fir_filter_bank"] = {
                 "name": "fir_filter_bank", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fir.cu",
@@ -499,14 +596,21 @@ def main() -> int:
               f"max_abs_err={err:.3e} (tol atol=1e-5*sum|phi|={tol:.3e}, "
               f"rtol=0)")
         if label == "full":
-            ms, ms_range = cuda_ms(torch, lambda: mriq.mriq_compute_q(*args),
-                                   20)
+            qr, qi = torch.empty_like(args[0]), torch.empty_like(args[0])
+            make = c_entry(mriq._lib(), "mriq_compute_q_launch", (
+                *(t.data_ptr() for t in args), qr.data_ptr(), qi.data_ptr(),
+                nx, nk), (qr, qi), got, "mriq_compute_q")
+            ms, ms_range = graph_ms(torch, make, 20)
+            call_ms, call_range = cuda_ms(
+                torch, lambda: mriq.mriq_compute_q(*args), 20)
             plain_ms, plain_range = cuda_ms(
                 torch, lambda: mriq.mriq_compute_q_plain(*args), 3)
             bound_ms, bound_by = mriq_bound_ms(nx, nk)
-            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+            print(f"  kernel {ms:.4f} ms {ms_range} (wrapper call "
+                  f"{call_ms:.4f} ms {call_range})  plain {plain_ms:.4f} ms "
                   f"{plain_range}  library: none  bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}, "
+                  f"{bound_ms / ms:.1%} of it)")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
             est = precompile("compute_q", "hopper",
@@ -531,30 +635,17 @@ def main() -> int:
     # (outputs are averages of unit normals; bf16 rounding of p and o)
     tols = {bf16: 2e-2, f32: 2e-5}
     flops_rate = {bf16: BF16_FLOPS_PER_S, f32: FP32_FLOPS_PER_S}
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def flash_direct(q, k, v, window, block_q, block_k):
-        """Launches of the kernel alone, straight from its C entry point on
-        arguments checked and allocated once: ``make(stream)`` returns one
-        launch on that stream (timed eagerly and as a CUDA graph); the first
-        is held against the wrapper.  These launches are not counted."""
-        lib = FA._lib()
+        """The kernel from its C entry point (as ``c_entry``)."""
         o = torch.empty_like(q)
         b, hq, n, d = q.shape
-
-        def make(on):
-            return held(lib.flash_attention_launch, (
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-                k.shape[1], n, d, block_q, block_k, 1, window,
-                1.0 / math.sqrt(d), int(q.dtype == bf16), on), o)
-
-        _build.check(make(stream)()[0], lib, "flash_attention")
-        torch.cuda.synchronize()
-        if not torch.equal(o, FA.flash_attention(
-                q, k, v, window=window, block_q=block_q, block_k=block_k)):
-            raise AssertionError("flash_attention: direct launch and wrapper "
-                                 "differ")
-        return make
+        return c_entry(FA._lib(), "flash_attention_launch", (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+            k.shape[1], n, d, block_q, block_k, 1, window, 1.0 / math.sqrt(d),
+            int(q.dtype == bf16)), (o,), (FA.flash_attention(
+                q, k, v, window=window, block_q=block_q, block_k=block_k),),
+            "flash_attention")
 
     flash_cases = [(f"serve S={n}", 1, 32, 8, n, 128, bf16, 0)
                    for n in SERVE_BUCKETS]
@@ -674,30 +765,20 @@ def main() -> int:
                                  "HGMMA or UTMALDG")
 
     def decode_direct(q, k, v, sp, cp, window, block_k):
-        """The split and combine kernels alone from their C entry point on
-        arguments checked and allocated once (as flash_direct)."""
-        lib = DA._lib()
+        """The split and combine kernels from their C entry point (as
+        ``c_entry``)."""
         b, hq, _, d = q.shape
         hkv, n = k.shape[1], k.shape[2]
         splits, _ = DA.decode_splits(b * hkv, n, block_k)
         o = torch.empty_like(q)
         part = torch.empty(b * hq * splits * (d + 2), dtype=f32, device=dev)
-
-        def make(on):
-            return held(lib.decode_attention_launch, (
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
-                cp.data_ptr(), o.data_ptr(), part.data_ptr(), b, hkv,
-                hq // hkv, n, d, block_k, splits, window, 1.0 / math.sqrt(d),
-                int(q.dtype == bf16), on), (o, part))
-
-        _build.check(make(stream)()[0], lib, "decode_attention")
-        torch.cuda.synchronize()
-        if not torch.equal(o, DA.decode_attention(q, k, v, sp, cp,
-                                                  window=window,
-                                                  block_k=block_k)):
-            raise AssertionError("decode_attention: direct launch and "
-                                 "wrapper differ")
-        return make
+        return c_entry(DA._lib(), "decode_attention_launch", (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+            cp.data_ptr(), o.data_ptr(), part.data_ptr(), b, hkv, hq // hkv,
+            n, d, block_k, splits, window, 1.0 / math.sqrt(d),
+            int(q.dtype == bf16)), (o, part), (DA.decode_attention(
+                q, k, v, sp, cp, window=window, block_k=block_k),),
+            "decode_attention")
 
     # decode: bf16 2e-2 as above; f32 5e-6, the decode tolerance of
     # tests/test_kernels.py (float32 throughout, summation order only)
@@ -824,6 +905,44 @@ def main() -> int:
     scan_cases += [("rglru_scan", "planner (reduced)", (2, 128, 64), bf16),
                    ("rglru_scan", "off-grain S=9 D=300", (1, 9, 300), bf16),
                    ("rglru_scan", "ragged f32", (2, 300, 300), f32)]
+    # the chunked scan's edges: one chunk short of, at and one step past
+    # time_chunk; two batch rows over three groups of chunks; a with exact
+    # 0s (the carry cut) and 1s (passed whole); D odd (single bf16 words);
+    # the largest chunk count, at the smallest time_chunk, on a 3-D grid
+    scan_cases += [("rglru_scan", f"S=time_chunk{o:+d}" if o else
+                    "S=time_chunk", (1, RS.DEFAULT_TIME_CHUNK + o, 2560),
+                    bf16) for o in (-1, 0, 1)]
+    scan_cases += [("rglru_scan", "B=2 over 94 chunks", (2, 3000, 300), bf16),
+                   ("rglru_scan", "exact 0s and 1s in a", (2, 3000, 300), f32),
+                   ("rglru_scan", "odd D", (1, 2100, 301), bf16),
+                   ("rglru_scan", "3-D grid, time_chunk 16", (3, 40000, 300),
+                    bf16)]
+
+    def scan_entry(name, args, want, block_c, time_chunk):
+        """A scan kernel from its C entry point (as ``c_entry``); returns
+        ``make`` and the tensors it writes."""
+        outs = tuple(torch.empty_like(t) for t in want)
+        ptrs = tuple(t.data_ptr() for t in (*args, *outs))
+        bf = int(args[0].dtype == bf16)
+        if name == "ssm_scan":
+            return c_entry(SS._lib(), "ssm_scan_launch", (
+                *ptrs, *args[0].shape, block_c, time_chunk, bf), outs, want,
+                name), outs
+        work = RS.scratch(args[0], block_c, time_chunk)
+        return c_entry(RS._lib(), "rglru_scan_launch", (
+            *ptrs, *args[0].shape, block_c, time_chunk, bf, work.data_ptr(),
+            work.numel()), (*outs, work), want, name), outs
+
+    def rglru_replays(make, args, outs, got, kw, what):
+        """The launch replayed from one graph on a's inputs, then on other
+        inputs, then on a's again (``replays_agree``)."""
+        other = (decays(*args[0].shape, dtype=args[0].dtype),
+                 dnormal(*args[1].shape, dtype=args[1].dtype), args[2])
+        want = RS.rglru_scan(*other, **kw)
+        saved = tuple(t.clone() for t in args)
+        replays_agree(torch, make, args, outs, [
+            (saved, got), (other, want), (saved, got)], what)
+
     for name, label, shape, dt in scan_cases:
         if name == "ssm_scan":
             b, n, d, ns = shape
@@ -831,15 +950,17 @@ def main() -> int:
                     dnormal(b, n, ns, dtype=dt), dnormal(b, d, ns, dtype=f32))
             kernel, plain, mod = SS.ssm_scan, SS.ssm_scan_plain, SS
             bound_ms, bound_by = ssm_bound_ms(b, n, d, ns, args[0].element_size())
-            attrs = SS.kernel_attributes(ns, SS.DEFAULT_TIME_CHUNK, dt == bf16)
         else:
             b, n, d = shape
             args = (decays(*shape, dtype=dt), dnormal(*shape, dtype=dt),
                     dnormal(b, d, dtype=f32))
+            if label.startswith("exact"):
+                args[0].view(-1)[::5] = 0.0
+                args[0].view(-1)[2::7] = 1.0
             kernel, plain, mod = RS.rglru_scan, RS.rglru_scan_plain, RS
             bound_ms, bound_by = rglru_bound_ms(b, n, d, args[0].element_size())
-            attrs = RS.kernel_attributes(RS.DEFAULT_TIME_CHUNK, dt == bf16)
-        got, want = kernel(*args), plain(*args)
+        kw = {"time_chunk": 16} if label.endswith("time_chunk 16") else {}
+        got, want = kernel(*args, **kw), plain(*args)
         torch.cuda.synchronize()
         tol = scan_tols[name][dt]
         assert_close(torch, got[0].float(), want[0].float(), f"{name} {label}",
@@ -852,21 +973,73 @@ def main() -> int:
                 f": max_abs_err={err:.3e} (tol rtol=atol={tol}), final state "
                 f"{max_abs_err(torch, got[1], want[1]):.3e} (tol {ftol})")
         if label.startswith("serve"):
-            ms, ms_range = cuda_ms(torch, lambda: kernel(*args), 20)
-            line += (f"; kernel {ms:.4f} ms {ms_range}, bound "
-                     f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            make, outs = scan_entry(name, args, got, mod.DEFAULT_BLOCK_C,
+                                    mod.DEFAULT_TIME_CHUNK)
+            ms, ms_range = graph_ms(torch, make, 20)
+            if name == "rglru_scan":
+                rglru_replays(make, args, outs, got, {}, f"{name} {label}")
+            call_ms, call_range = cuda_ms(torch, lambda: kernel(*args), 20)
+            line += (f"; kernel {ms:.4f} ms {ms_range} (wrapper call "
+                     f"{call_ms:.4f} ms {call_range}), bound "
+                     f"{bound_ms * 1e3:.2f} us ({bound_by}, "
+                     f"{bound_ms / ms:.1%} of it)")
         print(line)
+        if label.startswith("3-D grid"):
+            make, outs = scan_entry(name, args, got, mod.DEFAULT_BLOCK_C, 16)
+            rglru_replays(make, args, outs, got, kw, f"{name} {label}")
+            print(f"  grid ({-(-n // 16)}, {-(-d // mod.DEFAULT_BLOCK_C)}, "
+                  f"{b}) blocks; graph replays bit-identical")
         if label == f"serve S={SERVE_BUCKETS[0]}":
             plain_ms, plain_range = cuda_ms(torch, lambda: plain(*args), 1)
-            est = precompile(name, "hopper", variants(name)["hopper"], args)
-            print(f"  kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
-                  f"{plain_range}  library: none  bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            print(f"  kernel {ms:.4f} ms {ms_range}"
+                  + (f" (first version {RGLRU_FIRST_MS} ms, an earlier run "
+                     f"on the same card model)" if name == "rglru_scan" else "")
+                  + f"  plain {plain_ms:.4f} ms {plain_range}  library: none"
+                  f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+                  f"{bound_ms / ms:.1%} of it)")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
-            print(f"  cudaFuncGetAttributes (time_chunk "
-                  f"{mod.DEFAULT_TIME_CHUNK}): {attrs}; Step-3 estimate "
-                  f"{est.resource_bytes:.0f} B/block")
+            points = [(mod.DEFAULT_BLOCK_C, mod.DEFAULT_TIME_CHUNK)]
+            if name == "rglru_scan":
+                points += [(bc, tc) for bc in RS.BLOCK_CS
+                           for tc in RS.TIME_CHUNKS if (bc, tc) != points[0]]
+            sweep = {}
+            for bc, tc in points:
+                # each tile point against the plain version and the
+                # wrapper; its time as a graph replay; its registers and
+                # shared memory against the Step-3 estimate
+                at = kernel(*args, block_c=bc, time_chunk=tc)
+                assert_close(torch, at[0].float(), want[0].float(),
+                             f"{name} {label} at {bc}x{tc}", rtol=tol,
+                             atol=tol)
+                if (bc, tc) != points[0]:
+                    sweep[bc, tc] = graph_ms(torch, scan_entry(
+                        name, args, at, bc, tc)[0], 20)[0]
+                if name == "ssm_scan":
+                    attrs = SS.kernel_attributes(shape[3], tc, dt == bf16)
+                    dynamic = 0
+                else:
+                    attrs = RS.kernel_attributes(tc, dt == bf16)
+                    dynamic = RS.kernel_smem_bytes(bc, tc, dt == bf16)
+                est = precompile(name, "hopper", variants(name)["hopper"],
+                                 args, {"block_c": bc, "time_chunk": tc})
+                print(f"  block_c {bc}, time_chunk {tc}: "
+                      f"cudaFuncGetAttributes {attrs}, dynamic smem "
+                      f"{dynamic} B; Step-3 estimate "
+                      f"{est.resource_bytes:.0f} B/block")
+                if est.resource_bytes != attrs["static_smem_bytes"] + dynamic:
+                    raise AssertionError(f"{name}: Step-3 estimate "
+                                         f"{est.resource_bytes} B != the "
+                                         f"kernel's {attrs}, dynamic "
+                                         f"{dynamic} B at {bc}x{tc}")
+            if sweep:
+                sweep[points[0]] = ms
+                best = min(sweep, key=sweep.get)
+                print("  tile points (block_c x time_chunk: kernel ms): "
+                      + ", ".join(f"{bc}x{tc}: {t:.4f}"
+                                  for (bc, tc), t in sorted(sweep.items()))
+                      + f"; best {best[0]}x{best[1]}, default "
+                      f"{points[0][0]}x{points[0][1]}")
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -879,24 +1052,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     def rmsnorm_launches(x, w):
-        """The kernel alone, launched straight from its C entry point on
-        the wrapper's arguments (checked and allocated once), for timing:
-        at these sizes the wrapper's host cost per call (~25 us) exceeds
-        the kernel's, so back-to-back wrapper calls time the host.  These
-        launches are measurements and are not counted."""
-        lib = RN._lib()
+        """The kernel launched from its C entry point (as ``c_entry``): at
+        these sizes the wrapper's host cost per call (~25 us) exceeds the
+        kernel's, so back-to-back wrapper calls time the host."""
         rows_x = x.view(-1, x.shape[-1])
         out = torch.empty_like(rows_x)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (rows_x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                rows_x.shape[0], rows_x.shape[1], rows_x.stride(0), 1e-5,
-                int(x.dtype == bf16), int(w.dtype == bf16),
-                RN.threads(x.shape[-1], x.element_size()), stream)
-        _build.check(lib.rmsnorm_launch(*args), lib, "rmsnorm")
-        torch.cuda.synchronize()
-        if not torch.equal(out.view(x.shape), RN.rmsnorm(x, w, eps=1e-5)):
-            raise AssertionError("rmsnorm: direct launch and wrapper differ")
-        return held(lib.rmsnorm_launch, args, out)
+        return c_entry(RN._lib(), "rmsnorm_launch", (
+            rows_x.data_ptr(), w.data_ptr(), out.data_ptr(), rows_x.shape[0],
+            rows_x.shape[1], rows_x.stride(0), 1e-5, int(x.dtype == bf16),
+            int(w.dtype == bf16), RN.threads(x.shape[-1], x.element_size())),
+            (out,), (RN.rmsnorm(x, w, eps=1e-5).view(rows_x.shape),),
+            "rmsnorm")(stream)
 
     # rmsnorm at the rows the norms of phases 6, 8 and 9 and of phase 10's
     # discovered Mistral see (prefill buckets, a decode step) and 9 rows of
@@ -1000,18 +1166,27 @@ def main() -> int:
 
     # ---- 5. the hopper patterns at full size (main path, continued) -----
     phase("5. run")
-    for prog, impl, tols in (
+    # tdFIR's hopper pattern is also timed once warm (median of 5 calls;
+    # MRI-Q's full-size pattern runs its loop-faithful check for seconds)
+    for prog, impl, tols, reps in (
             (tdfir_app.make_program(TDFIR_FULL, TDFIR_FULL, device=dev),
-             Impl({"fir_bank": "hopper"}), (3e-4, 1e-3)),
+             Impl({"fir_bank": "hopper"}), (3e-4, 1e-3), 5),
             (mriq_app.make_program(MRIQ_FULL, MRIQ_FULL, device=dev),
-             Impl({"compute_q": "hopper"}), (3e-3, 3e-3, 1e-3))):
+             Impl({"compute_q": "hopper"}), (3e-3, 3e-3, 1e-3), 0)):
         sample = prog.sample_inputs(0, dev)
         offload = Impl({r.name: "offload" for r in prog.regions})
         torch.cuda.reset_peak_memory_stats(dev)
+        run = prog.build(impl)
         t0 = time.perf_counter()
-        got = prog.build(impl)(*sample)
+        got = run(*sample)
         torch.cuda.synchronize()
         t_hopper = time.perf_counter() - t0
+        warm = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run(*sample)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         want = prog.build(offload)(*sample)
         torch.cuda.synchronize()
@@ -1028,7 +1203,10 @@ def main() -> int:
         print(f"{prog.name} {impl.describe()} vs all-offload: outputs "
               f"{[tuple(a.shape) for a in got]} agree; hopper build "
               f"{t_hopper:.2f} s, offload build {t_offload:.2f} s (wall, "
-              f"first call); peak memory "
+              f"first call)"
+              + (f"; hopper pattern warm {statistics.median(warm) * 1e3:.3f}"
+                 f" ms (wall, median of {reps})" if warm else "")
+              + f"; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         del sample, got, want
         torch.cuda.empty_cache()

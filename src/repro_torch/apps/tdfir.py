@@ -26,8 +26,9 @@ from repro_torch.core.program import OffloadableProgram, Region, meta
 from repro_torch.core.regions import Impl, TuningSpace, dispatch, register_variant
 from repro_torch.core.resources import register_smem_estimator
 from repro_torch.kernels import SMEM_PER_BLOCK
-from repro_torch.kernels.fir import (DEFAULT_BLOCK_N, fir_filter_bank,
-                                     largest_divisor, smem_bytes)
+from repro_torch.kernels.fir import (DEFAULT_BLOCK_N, MAX_BLOCK_N,
+                                     fir_filter_bank, largest_divisor,
+                                     smem_bytes)
 from repro_torch.kernels.ref import fir_ref
 
 
@@ -73,10 +74,10 @@ def _fir_offload(x, h):
 
 
 def _fir_tile_ok(p, args) -> bool:
-    """fir_bank tile legality: block_n divides the sample count, tap_unroll
-    divides the tap count, and the block's shared memory (taps + halo'd x
-    window, complex64) fits a Hopper block.  Unbound queries (no args)
-    accept every point."""
+    """fir_bank tile legality: block_n divides the sample count (and needs
+    at most the kernel's 256 threads), tap_unroll divides the tap count,
+    and the block's shared memory (taps + halo'd x window, complex64) fits
+    a Hopper block.  Unbound queries (no args) accept every point."""
     if not args:
         return True
     try:
@@ -85,7 +86,7 @@ def _fir_tile_ok(p, args) -> bool:
         return True
     bn, tu = p["block_n"], p["tap_unroll"]
     return (bn <= n and n % bn == 0 and tu <= k and k % tu == 0
-            and smem_bytes(bn, k) <= SMEM_PER_BLOCK)
+            and bn <= MAX_BLOCK_N and smem_bytes(bn, k) <= SMEM_PER_BLOCK)
 
 
 @register_variant("fir_bank", "hopper", tuning=TuningSpace(

@@ -24,7 +24,9 @@ from repro_torch.kernels import SMEM_PER_BLOCK, _build
 # tap-loop unroll factors the CUDA source instantiates (the paper's knob b)
 TAP_UNROLLS = (1, 2, 4, 8)
 DEFAULT_BLOCK_N = 512        # output samples per block
-FIR_THREADS = 128            # threads per block, as in csrc/fir.cu
+FIR_R = 8                    # consecutive outputs per thread, as in csrc/fir.cu
+FIR_MAX_THREADS = 256        # threads per block at most, as in csrc/fir.cu
+MAX_BLOCK_N = FIR_R * FIR_MAX_THREADS
 
 
 def largest_divisor(n: int, cap: int) -> int:
@@ -37,10 +39,23 @@ def largest_divisor(n: int, cap: int) -> int:
     return 1
 
 
+def threads(block_n: int) -> int:
+    """Threads of one block: FIR_R consecutive outputs each."""
+    return -(-block_n // FIR_R)
+
+
+def fir_pad(e: int) -> int:
+    """Where window sample e is staged: one sample of padding after every
+    FIR_R (``fir_pad`` in csrc/fir.cu)."""
+    return e + e // FIR_R
+
+
 def smem_bytes(block_n: int, n_taps: int) -> int:
-    """Dynamic shared memory of one block: the K taps and the
-    block_n + K - 1 halo window of x, as complex64."""
-    return 8 * (block_n + 2 * n_taps - 1)
+    """Dynamic shared memory of one block, as complex64: the K taps (padded
+    to an even count for 16-byte tap pairs) and the padded x window of
+    ``threads * FIR_R + K`` samples."""
+    window = threads(block_n) * FIR_R + n_taps
+    return 8 * (n_taps + n_taps % 2 + fir_pad(window - 1) + 1)
 
 
 def fir_filter_bank_plain(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -81,12 +96,21 @@ def _lib() -> ctypes.CDLL:
     _build.declare(lib, {
         "fir_filter_bank_launch": (i, (vp, vp, vp, i, i, i, i, i, vp)),
         "fir_filter_bank_attributes": (i, (i, ip, ip, ip)),
-        "fir_threads": (i, ()),
+        "fir_outputs_per_thread": (i, ()),
+        "fir_max_threads": (i, ()),
+        "fir_smem_bytes": (i, (i, i)),
     })
-    if lib.fir_threads() != FIR_THREADS:
+    if (lib.fir_outputs_per_thread(), lib.fir_max_threads()) != (
+            FIR_R, FIR_MAX_THREADS):
         raise RuntimeError("csrc/fir.cu and kernels/fir.py disagree on "
-                           "FIR_THREADS")
+                           "FIR_R or FIR_MAX_THREADS")
     return lib
+
+
+def kernel_smem_bytes(block_n: int, n_taps: int) -> int:
+    """The dynamic shared memory the C entry point asks for at this tile
+    (the kernel's own figure, held against :func:`smem_bytes`)."""
+    return _lib().fir_smem_bytes(block_n, n_taps)
 
 
 def kernel_attributes(tap_unroll: int = 1) -> dict:
@@ -119,7 +143,8 @@ def fir_filter_bank(x: torch.Tensor, h: torch.Tensor, *,
         return fir_filter_bank_plain(x, h)
     if x.device.type != "cuda":
         raise ValueError(f"fir_filter_bank: no kernel for device {x.device}")
-    if m > 65_535 or m * n >= 2 ** 31 or smem_bytes(block_n, k) > SMEM_PER_BLOCK:
+    if (m > 65_535 or m * n >= 2 ** 31 or block_n > MAX_BLOCK_N
+            or smem_bytes(block_n, k) > SMEM_PER_BLOCK):
         raise ValueError(f"fir_filter_bank: shape M={m}, N={n}, K={k} with "
                          f"block_n={block_n} exceeds the kernel's limits")
     y = torch.empty_like(x)

@@ -160,14 +160,15 @@ def _ssm_hopper_smem(*_, **__):
               "time_chunk": RS.DEFAULT_TIME_CHUNK}))
 def rglru_scan_hopper(a, b, h0, *, block_c=RS.DEFAULT_BLOCK_C,
                       time_chunk=RS.DEFAULT_TIME_CHUNK):
-    # every point launches (one thread per channel, registers only), so the
-    # space needs no validity predicate
+    # every point launches (at most 256 threads and 128 KB of shared
+    # memory, any S and D), so the space needs no validity predicate
     return RS.rglru_scan(a, b, h0, block_c=block_c, time_chunk=time_chunk)
 
 
 @register_smem_estimator("rglru_scan", "hopper")
-def _rglru_hopper_smem(*_, **__):
-    return 0        # the kernel keeps its chunks in registers
+def _rglru_hopper_smem(a, *_, block_c=RS.DEFAULT_BLOCK_C,
+                       time_chunk=RS.DEFAULT_TIME_CHUNK, **__):
+    return RS.smem_bytes(block_c, time_chunk, a.element_size())
 
 
 # ---------------------------------------------------------------------------

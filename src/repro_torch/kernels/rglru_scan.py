@@ -6,9 +6,13 @@ kernel ``csrc/rglru_scan.cu``.
 :func:`rglru_scan` launches the kernel on CUDA tensors and runs
 :func:`rglru_scan_plain`, the same function in plain PyTorch, on CPU or
 meta tensors.  On a CUDA tensor it launches or raises; it never falls
-back.  ``block_c`` (threads per block, one channel each) and
-``time_chunk`` (time steps whose loads are issued together) are the
-kernel's tile sizes; S and D need not be multiples of either.
+back.  The kernel is a scan chunked over time: ``block_c`` channels by
+``time_chunk`` steps per block (the JAX kernel's knobs, with its meaning
+of ``time_chunk``: the steps one block owns).  Each chunk's carry-in is
+composed, in a fixed order, from the run composites (``RUN`` chunks each)
+and chunk aggregates since its group's first chunk (``GROUP`` chunks a
+group), applied to that chunk's end state.  S and D need not be
+multiples of either knob.
 """
 from __future__ import annotations
 
@@ -20,10 +24,19 @@ import torch
 from repro_torch.core.loops import fori_loop
 from repro_torch.kernels import _build
 
-BLOCK_CS = (64, 128, 256)        # channels (threads) per block
-TIME_CHUNKS = (8, 16, 32)        # time steps per chunk
+BLOCK_CS = (64, 128, 256)        # channels per block
+TIME_CHUNKS = (16, 32, 64)       # time steps per block
 DEFAULT_BLOCK_C = 128
-DEFAULT_TIME_CHUNK = 16
+DEFAULT_TIME_CHUNK = 32
+GROUP = 32                       # chunks per group, W in csrc/rglru_scan.cu
+RUN = 8                          # chunks per run, V in csrc/rglru_scan.cu
+
+
+def smem_bytes(block_c: int, time_chunk: int, elem_size: int) -> int:
+    """Shared memory of one block: the chunk's a and b (``time_chunk`` steps
+    of ``block_c`` channels each, dynamic) and the chunk index its ticket
+    drew (static: 16 bytes, the 16-byte alignment of the dynamic array)."""
+    return 2 * time_chunk * block_c * elem_size + 16
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -43,13 +56,35 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     ip = ctypes.POINTER(ctypes.c_int)
     _build.declare(lib, {
-        "rglru_scan_launch": (i, (vp, vp, vp, vp, vp, i, i, i, i, i, i, vp)),
+        "rglru_scan_launch": (i, (vp, vp, vp, vp, vp, i, i, i, i, i, i, vp,
+                                  sz, vp)),
+        "rglru_scan_scratch_bytes": (sz, (i, i, i, i, i)),
         "rglru_scan_attributes": (i, (i, i, ip, ip, ip)),
+        "rglru_scan_group": (i, ()),
+        "rglru_scan_run": (i, ()),
+        "rglru_scan_smem_bytes": (i, (i, i, i)),
     })
+    if (lib.rglru_scan_group(), lib.rglru_scan_run()) != (GROUP, RUN):
+        raise RuntimeError("csrc/rglru_scan.cu and kernels/rglru_scan.py "
+                           "disagree on GROUP or RUN")
     return lib
+
+
+def kernel_smem_bytes(block_c: int, time_chunk: int, bf16: bool) -> int:
+    """The dynamic shared memory the C entry point asks for at this tile
+    (the kernel's own figure, held against :func:`smem_bytes`)."""
+    return _lib().rglru_scan_smem_bytes(block_c, time_chunk, int(bf16))
+
+
+def scratch(a: torch.Tensor, block_c: int, time_chunk: int) -> torch.Tensor:
+    """The launch's scratch (status words, tickets, chunk aggregates, run
+    composites and group end states) for a of shape [B, S, D]; the C entry
+    point clears what needs clearing."""
+    n = _lib().rglru_scan_scratch_bytes(*a.shape, block_c, time_chunk)
+    return torch.empty(n, dtype=torch.uint8, device=a.device)
 
 
 def kernel_attributes(time_chunk: int = DEFAULT_TIME_CHUNK,
@@ -97,11 +132,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     hf = torch.empty_like(h0)
     lib = _lib()
     with torch.cuda.device(a.device):
+        work = scratch(a, block_c, time_chunk)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = lib.rglru_scan_launch(
             a.data_ptr(), b.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
             hf.data_ptr(), bsz, s, d, block_c, time_chunk,
-            int(a.dtype == torch.bfloat16), stream)
+            int(a.dtype == torch.bfloat16), work.data_ptr(), work.numel(),
+            stream)
     _build.check(code, lib, "rglru_scan")
     rglru_scan.launches += 1
     return h_all, hf

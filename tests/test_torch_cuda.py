@@ -52,6 +52,10 @@ def _cnormal(rng, *shape):
     (4, 1024, 64, 512, 1),
     (64, 4000, 128, 500, 4),     # N no power of two (500 divides it)
     (2, 256, 8, 128, 8),
+    (64, 4096, 128, 512, 8),     # HPEC set 1, 16-byte tap pairs
+    (64, 4000, 128, 500, 1),     # the last thread stores 4 of its 8 outputs
+    (3, 100, 7, 100, 1),         # K odd: the tap count padded to even
+    (1, 4096, 16, 2048, 2),      # 256 threads, the most a block takes
 ])
 def test_fir_kernel_matches_plain_on_cuda(cuda_device, m, n, k, block_n, unroll):
     rng = np.random.default_rng(3)
@@ -275,8 +279,15 @@ def test_ssm_kernel_matches_plain_on_cuda(cuda_device, b, s, d, n, dtype,
 @pytest.mark.parametrize("b,s,d,dtype,bc,tc", [
     (1, 2080, 2560, torch.bfloat16, 128, 16),      # recurrentgemma's bucket
     (1, 16, 2560, torch.bfloat16, 128, 16),
-    (2, 9, 300, torch.float32, 64, 8),             # ragged S and D
+    (2, 9, 300, torch.float32, 64, 16),            # ragged S and D
     (2, 128, 64, torch.bfloat16, 256, 32),         # the planner's reduced
+    (1, 31, 2560, torch.bfloat16, 128, 32),        # one chunk, one step short
+    (1, 32, 2560, torch.bfloat16, 128, 32),        # one whole chunk
+    (1, 33, 2560, torch.bfloat16, 128, 32),        # a second chunk of 1 step
+    (2, 3000, 300, torch.bfloat16, 128, 32),       # 94 chunks: 3 groups a row
+    (1, 2100, 301, torch.bfloat16, 64, 64),        # D odd: single bf16 words
+    (3, 40000, 300, torch.bfloat16, 256, 16),      # 2,500 x 2 x 3 blocks
+    (2, 2000, 77, torch.float32, 256, 64),
 ])
 def test_rglru_kernel_matches_plain_on_cuda(cuda_device, b, s, d, dtype, bc,
                                             tc):
@@ -293,6 +304,48 @@ def test_rglru_kernel_matches_plain_on_cuda(cuda_device, b, s, d, dtype, bc,
     tol = SCAN_TOL.get(dtype, 1e-5)
     torch.testing.assert_close(h_all.float(), wa.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(hf, wh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rglru_kernel_exact_decays_and_graph_replays_on_cuda(cuda_device,
+                                                             dtype):
+    """a with exact 0s (the carry is cut) and 1s (it passes whole); the
+    launch captured in a CUDA graph and replayed on these inputs, on others
+    and on these again, its outputs poisoned before each replay: every
+    replay gives the eager result bit for bit (the status words are
+    cleared inside the launch, so no replay reads the last one's values)."""
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.5, 1.0, (2, 3000, 300))
+    a[:, ::5] = 0.0
+    a[:, 2::7] = 1.0
+    a = torch.tensor(a, dtype=torch.float32, device=cuda_device).to(dtype)
+    bb = _normal(rng, (2, 3000, 300), dtype, cuda_device)
+    h0 = _normal(rng, (2, 300), torch.float32, cuda_device)
+    eager = RS.rglru_scan(a, bb, h0)
+    wa, wh = RS.rglru_scan_plain(a, bb, h0)
+    tol = SCAN_TOL.get(dtype, 1e-5)
+    torch.testing.assert_close(eager[0].float(), wa.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(eager[1], wh, rtol=1e-5, atol=1e-5)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        RS.rglru_scan(a, bb, h0)                 # warm-up off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = RS.rglru_scan(a, bb, h0)
+    first = (a.clone(), bb.clone())
+    other = (a.flip(1), bb.flip(1))
+    other_eager = RS.rglru_scan(*other, h0)
+    for (ai, bi), want in ((first, eager), (other, other_eager),
+                           (first, eager)):
+        a.copy_(ai)
+        bb.copy_(bi)
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
 @pytest.mark.cuda

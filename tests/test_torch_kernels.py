@@ -65,6 +65,68 @@ def test_fir_wrapper_on_cpu_matches_jax_fir_ref(no_cuda_build, m, n, k,
         rtol=FIR_TOL, atol=FIR_TOL)
 
 
+def _fir_register_blocked(x, h, block_n, tap_unroll):
+    """Plain-torch emulation of csrc/fir.cu: per (bank, tile) the staged
+    window ``xs[fir_pad(e)] = x[n0 - K + e]`` (zeros outside [0, N)); thread
+    t owns outputs t R .. t R + R - 1 and a register window of R samples
+    that slides one sample per tap; taps in order 0 .. K - 1, unrolled by
+    ``tap_unroll``, with the kernel's FMAs.  Returns y and how many times
+    each output was stored."""
+    m, n = x.shape
+    k = h.shape[1]
+    r, threads = fir.FIR_R, fir.threads(block_n)
+    tiles, window = n // block_n, fir.threads(block_n) * fir.FIR_R + k
+
+    pad = fir.fir_pad
+
+    e = torch.arange(window)
+    src = torch.arange(tiles)[:, None] * block_n - k + e      # [tiles, window]
+    staged = torch.where((src >= 0) & (src < n), x[:, src.clamp(0, n - 1)], 0)
+    xs = torch.zeros(m, tiles, int(pad(window - 1)) + 1, dtype=x.dtype)
+    xs[:, :, pad(e)] = staged
+    assert len(set(pad(e).tolist())) == window           # no two share a slot
+    o = torch.arange(threads) * r
+    win = xs[:, :, pad(o[:, None] + torch.arange(r) + k)]  # [m, tiles, t, R]
+    acc_r = torch.zeros(win.shape)
+    acc_i = torch.zeros(win.shape)
+    for j0 in range(0, k, tap_unroll):
+        for u in range(tap_unroll):
+            j = j0 + u
+            hr, hi = (v[:, j, None, None, None] for v in (h.real, h.imag))
+            nxt = xs[:, :, pad(o + k - 1 - j)]
+            acc_r = acc_r + hr * win.real
+            acc_r = acc_r - hi * win.imag
+            acc_i = acc_i + hr * win.imag
+            acc_i = acc_i + hi * win.real
+            win = torch.cat([nxt[..., None], win[..., :-1]], dim=-1)
+    out = (torch.arange(tiles)[:, None, None] * block_n + o[:, None]
+           + torch.arange(r))                              # [tiles, t, R]
+    keep = (o[:, None] + torch.arange(r) < block_n).expand_as(out)
+    y = torch.zeros(m, n, dtype=x.dtype)
+    y[:, out[keep]] = torch.complex(acc_r, acc_i)[:, keep]
+    writes = torch.bincount(out[keep], minlength=n)
+    return y, writes
+
+
+@pytest.mark.parametrize("tap_unroll", fir.TAP_UNROLLS)
+@pytest.mark.parametrize("k", [8, 64, 128])
+@pytest.mark.parametrize("block_n", [128, 256, 500, 512, 1024])
+def test_fir_register_blocking_matches_jax_fir_ref(block_n, k, tap_unroll):
+    """The kernel's thread-to-output map and sliding register window
+    against JAX ``fir_ref`` (3e-4; the same products summed in tap order):
+    two tiles per bank, so the second tile's halo reaches into the first;
+    every output is stored exactly once (block_n 500 leaves the last
+    thread's outputs 500-503 of each tile unstored)."""
+    rng = np.random.default_rng(block_n + k)
+    x, h = _cnormal(rng, 2, 2 * block_n), _cnormal(rng, 2, k)
+    got, writes = _fir_register_blocked(torch.from_numpy(x),
+                                        torch.from_numpy(h), block_n,
+                                        tap_unroll)
+    assert writes.tolist() == [1] * (2 * block_n)
+    want = np.asarray(JREF.fir_ref(jnp.asarray(x), jnp.asarray(h)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=FIR_TOL, atol=FIR_TOL)
+
+
 def test_fir_plain_and_ref_match_c_loop_structure():
     rng = np.random.default_rng(0)
     x, h = _cnormal(rng, 3, 48), _cnormal(rng, 3, 8)

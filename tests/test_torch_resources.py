@@ -20,12 +20,19 @@ def _fir_args(n_samples=TDFIR_FULL.n_samples):
             meta((TDFIR_FULL.n_banks, TDFIR_FULL.n_taps), torch.complex64))
 
 
+# csrc/fir.cu at K = 128: the 128 taps and the window of block_n + 128
+# samples with one sample of padding after every 8, complex64 -- the figure
+# its C entry point asks for on the card
+FIR_SMEM = {128: 3320, 256: 4472, 512: 6776, 1024: 11384}
+
+
 @pytest.mark.parametrize("block_n", [128, 256, 512, 1024])
 def test_fir_hopper_estimate_follows_the_gene_tile(block_n):
     est = precompile("fir_bank", "hopper", variants("fir_bank")["hopper"],
                      _fir_args(), {"block_n": block_n, "tap_unroll": 4})
     assert est.lower_ok, est.error
     assert est.resource_bytes == smem_bytes(block_n, TDFIR_FULL.n_taps)
+    assert est.resource_bytes == FIR_SMEM[block_n]
     assert est.resource_budget == SMEM_PER_BLOCK
 
 

@@ -149,6 +149,98 @@ def test_rglru_scan_variants_match_jax(variant, jfn, b, s, d, chunk):
     _close(got[1], want[1], RGLRU_TOL)
 
 
+def _rglru_chunked(a, b, h0, time_chunk):
+    """Plain-torch emulation of the arithmetic of csrc/rglru_scan.cu.  Each
+    chunk's aggregate (A = prod a, H = the chunk's scan from 0) in float32,
+    as an affine map h -> A h + H.  Chunks come in groups of GROUP and runs
+    of RUN: the chunk ending a run publishes the run's composite; chunk k's
+    carry is the composite of the whole runs after its group's first chunk
+    j0, then of the chunks of its own run before it, applied to j0's end
+    state (A_j0 * carry_j0 + H_j0).  The chunk is then run again from its
+    carry, h_all stored in a's type.  Returns (h_all, h_final, the chunks
+    whose end state was read)."""
+    group, run = RS.GROUP, RS.RUN
+    bsz, s, d = a.shape
+    af, bf = a.float(), b.float()
+    starts = range(0, s, time_chunk)
+    one, zero = torch.ones(bsz, d), torch.zeros(bsz, d)
+
+    def then(f, g):              # f, then g
+        return g[0] * f[0], g[0] * f[1] + g[1]
+
+    aggs = []
+    for t0 in starts:
+        f = (one, zero)
+        for t in range(t0, min(s, t0 + time_chunk)):
+            f = then(f, (af[:, t], bf[:, t]))
+        aggs.append(f)
+    h_all = torch.empty_like(a)
+    ends, runs, read = {}, {}, set()
+    for k, t0 in enumerate(starts):
+        if k == 0:
+            h = h0.float()
+        else:
+            j0 = (k - 1) // group * group
+            whole = (k - j0 - 1) // run
+            first = j0 + run * whole + 1
+            part = (one, zero)
+            for agg in aggs[first:k]:
+                part = then(part, agg)
+            if (k - j0) % run == 0 and k - j0 < group:
+                runs[k] = then(part, aggs[k])
+            whole_runs = (one, zero)
+            for r in range(whole):
+                whole_runs = then(whole_runs, runs[j0 + run * (r + 1)])
+            carry = then(whole_runs, part)
+            h = carry[0] * ends[j0] + carry[1]
+            read.add(j0)
+        if k % group == 0:
+            ends[k] = aggs[k][0] * h + aggs[k][1]
+        for t in range(t0, min(s, t0 + time_chunk)):
+            h = af[:, t] * h + bf[:, t]
+            h_all[:, t] = h.to(a.dtype)
+    return h_all, h, read
+
+
+def _with_exact_ends(a):
+    """a with exact 0s (the carry is cut) and 1s (the carry passes
+    whole)."""
+    a = a.copy()
+    a[:, ::5] = 0.0
+    a[:, 2::7] = 1.0
+    return a
+
+
+@pytest.mark.parametrize("time_chunk", RS.TIME_CHUNKS)
+@pytest.mark.parametrize("steps", ["1", "9", "tc-1", "tc", "tc+1", "600",
+                                   "groups+1"])
+@pytest.mark.parametrize("bsz,dtype", [(1, torch.float32), (3, torch.float32),
+                                       (1, torch.bfloat16),
+                                       (3, torch.bfloat16)])
+def test_rglru_chunked_arithmetic_matches_jax(time_chunk, steps, bsz, dtype):
+    """The kernel's chunk arithmetic (aggregates, carry chain, fix-up)
+    against the JAX sequential oracle and the JAX ``ref`` variant: float32
+    at 1e-5 (the composition reorders float32 rounding only); bf16 inputs
+    at 2e-2 (the oracles in float32 on the same bf16 values; h_all is
+    rounded to bf16 once).  ``groups+1`` spans more than one group of
+    chunks and ends ragged."""
+    s = {"tc-1": time_chunk - 1, "tc": time_chunk, "tc+1": time_chunk + 1,
+         "groups+1": RS.GROUP * time_chunk + time_chunk + 3}.get(steps)
+    s = int(steps) if s is None else s
+    a, b, h0 = _rglru_inputs(bsz, s, 24, seed=s + bsz)
+    a = _with_exact_ends(a)
+    a, b = (_t(x).to(dtype) for x in (a, b))
+    got_all, got_final, read = _rglru_chunked(a, b, _t(h0), time_chunk)
+    chunks = -(-s // time_chunk)
+    assert read == {j for j in range(0, chunks - 1, RS.GROUP)}
+    ja, jb = (jnp.asarray(x.float().numpy()) for x in (a, b))
+    tol = RGLRU_TOL if dtype == torch.float32 else 2e-2
+    for want in (JR.rglru_scan_seq(ja, jb, jnp.asarray(h0)),
+                 JRG.rglru_scan_ref(ja, jb, jnp.asarray(h0))):
+        _close(got_all.float(), want[0], tol)
+        _close(got_final, want[1], RGLRU_TOL)
+
+
 def test_rglru_variants_keep_the_jax_output_types_in_bf16():
     """ref carries h0's float32 (so h_all is float32), offload casts h_all
     back to a's type, hopper stores a's type: as in the JAX package and the
@@ -238,8 +330,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_tuning_spaces_and_step3_estimates():
     """The hopper variants' tile genes: the ssm predicate admits whole-warp
-    blocks of at most 256 threads (block_c * N / 2); both scans keep their
-    chunks in registers (0 bytes of shared memory).  Flash at head_dim 256:
+    blocks of at most 256 threads (block_c * N / 2) and keeps its chunks in
+    registers (0 bytes of shared memory); every rglru point launches, with
+    its chunk of a and b and its ticket's chunk index in shared memory (at
+    most 128 KB + 16 bytes, float32 at 256 x 64).  Flash at head_dim 256:
     ``test_flash_tiles_at_head_dim_256``."""
     meta = torch.empty((1, 4096, 8192, 16), dtype=torch.bfloat16,
                        device="meta")
@@ -256,10 +350,21 @@ def test_tuning_spaces_and_step3_estimates():
     assert not SS.fits(64, 16, 16) and not SS.fits(4, 16, 8)  # 512 / 16 threads
     a = torch.empty((1, 4096, 2560), dtype=torch.bfloat16, device="meta")
     h = torch.empty((1, 2560), device="meta")
-    assert tuning_space("rglru_scan", "hopper").size((a, a, h)) == 9
-    est = precompile("rglru_scan", "hopper",
-                     variants("rglru_scan")["hopper"], (a, a, h))
-    assert est.lower_ok and est.resource_bytes == 0
+    space = tuning_space("rglru_scan", "hopper")
+    assert space.size((a, a, h)) == 9
+    for p in space.points((a, a, h)):
+        est = precompile("rglru_scan", "hopper",
+                         variants("rglru_scan")["hopper"], (a, a, h), p)
+        assert est.lower_ok and est.resource_bytes == RS.smem_bytes(
+            p["block_c"], p["time_chunk"], 2) <= 64 * 1024 + 16
+    bare = precompile("rglru_scan", "hopper",
+                      variants("rglru_scan")["hopper"], (a, a, h))
+    assert bare.resource_bytes == 2 * 32 * 128 * 2 + 16       # 16 KB + 16 B
+    f32 = torch.empty((1, 4096, 2560), device="meta")
+    assert space.size((f32, f32, h)) == 9
+    assert precompile("rglru_scan", "hopper", variants("rglru_scan")["hopper"],
+                      (f32, f32, h), {"block_c": 256, "time_chunk": 64}
+                      ).resource_bytes == 128 * 1024 + 16
 
 
 # recurrentgemma's local attention, head_dim 256.  bf16: the wgmma body at

@@ -49,23 +49,33 @@ Phases, each printed as it runs; any failure exits non-zero:
    seeded generator on the card) and serves 6 greedy requests (prompts
    2,060 / 2,048 / 1,000 / 300 / 100 / 9 tokens, buckets 2,080 / 2,048 /
    1,024 / 512 / 128 / 16) on 4 slots at ctx 2,080 with ``attn_core=hopper``
-   over the planned pattern.  Every request must finish with 16 tokens,
-   and each request's prefill logits under ``attn_core=hopper`` must agree
-   with ``attn_core=ref`` on the same params.  ``flash_attention`` must
-   have launched in this phase.
+   over the planned pattern, twice on one engine: round 1 captures a CUDA
+   graph per prefill bucket and the decode graph, round 2 replays them and
+   must capture nothing; an eager twin (the same step functions, called
+   eagerly) serves the mix once more.  Every request must finish with 16
+   tokens, the three runs must give the same greedy streams, and each
+   request's prefill logits under ``attn_core=hopper`` must agree with
+   ``attn_core=ref`` on the same params.  Each run prints TTFT, aggregate
+   tok/s, captures, launches and peak memory; then one decode step with
+   all 4 slots is timed as a graph replay and eagerly (host clock,
+   synchronized, median of 20, in turns) and traced once each with
+   ``torch.profiler`` (device busy share, kernels).  ``flash_attention``
+   must have launched in this phase, and in round 2.
 7. decode_attn plan — plans ``make_decode_program()`` (a real Step 4
    measuring ``decode_attn=hopper``, then a cache hit);
    ``decode_attention`` must have launched in this phase.
 8. serve falcon-mamba-7b — as phase 6 for the Mamba-1 SSM family: plans
    ``make_lm_program("falcon-mamba-7b")``, builds the full model (64
-   layers, d_inner 8,192, N=16) and serves the same mix with
-   ``ssm_scan=hopper``; ``ssm_scan`` must have launched in this phase and
-   the prefill logits under hopper must agree with ``ssm_scan=ref``.
+   layers, d_inner 8,192, N=16) and serves the same mix in the same way
+   with ``ssm_scan=hopper``; ``ssm_scan`` must have launched in this phase
+   (and in round 2) and the prefill logits under hopper must agree with
+   ``ssm_scan=ref``.
 9. serve recurrentgemma-2b — the same for the RG-LRU / local-attention
    hybrid (26 layers = 8 units of (RG-LRU, RG-LRU, local attention) + a
    2-layer tail; window 2,048, 10 query heads over 1 kv head of width
    256) with ``rglru_scan=hopper`` and ``attn_core=hopper``; ``rglru_scan``
-   and ``flash_attention`` must have launched in this phase.
+   and ``flash_attention`` must have launched in this phase (and in round
+   2).
 10. extract — the slice-4 main path, static extraction: the recognizer
    accuracy table of ``repro_torch.launch.loop_extraction`` over the three
    archs captured at full width and full depth on fake tensors (no
@@ -79,7 +89,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``rmsnorm`` must have launched (81 times per forward).
 
 Every launch counter is set to 0 just before the path it belongs to runs
-and read just after it; the comparisons of phase 3 do not count.
+and read just after it; the comparisons of phase 3 do not count.  A graph
+replay adds to each counter the launches its capture recorded
+(``serving/graphs.py``), so the counts stay kernel executions.
 
 The card's name and power limit come two lines before the last, the JSON
 object listing every ported kernel on the line before the last, and the
@@ -114,6 +126,9 @@ SERVE_BUCKETS = (2080, 2048, 1024, 512, 128, 16)
 SERVE_CTX = 2080
 SERVE_SLOTS = 4
 SERVE_NEW_TOKENS = 16
+# the kernel each hopper region of phases 6, 8 and 9 launches
+REGION_KERNEL = {"attn_core": "flash_attention", "ssm_scan": "ssm_scan",
+                 "rglru_scan": "rglru_scan"}
 # prefill logits of the hopper variants against ref on the same params.
 # The two attention paths differ only in where they round to bf16 (p
 # against a 64-key tile's running max or a 1,024-key chunk's; o to bf16),
@@ -222,6 +237,40 @@ def replays_agree(torch, make, ins, outs, cases, what: str) -> None:
         if not all(torch.equal(o, w) for o, w in zip(outs, want)):
             raise AssertionError(f"{what}: graph replay {i + 1} differs")
     del graph
+
+
+def profile_step(torch, fn, step_ms: float) -> str:
+    """One call of ``fn`` (then a synchronize) under ``torch.profiler``:
+    the device time (kernels, copies, memsets) as a share of the traced
+    span (first host event to last device event; the tracer slows the
+    step) and of ``step_ms``, the step's untraced host-clock time; the
+    kernels it ran, and the four names that took the most device time.
+    "not measured" when the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_device:
+        return "not measured (no device events in the trace)"
+    busy = sum(e.time_range.elapsed_us() for e in on_device)
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    kernels = [e for e in on_device
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    by_name: dict = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (f"{busy / 1e3:.3f} ms on the device = {busy / span:.1%} of the "
+            f"traced {span / 1e3:.3f} ms and {busy / 1e3 / step_ms:.1%} of "
+            f"the untraced step; {len(kernels)} kernels; top: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
 
 
 def clocks() -> str:
@@ -412,7 +461,7 @@ def main() -> int:
     from repro_torch.core.resources import precompile
     from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, launch_counters
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fir, mriq
     from repro_torch.kernels import flash_attention as FA
@@ -427,9 +476,18 @@ def main() -> int:
     from repro_torch.models.offload_program import make_lm_program
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.graphs import EagerStep
+
+    class EagerTwin(ServeEngine):
+        """The engine with its steps called eagerly, not captured: the
+        yardstick of phases 6, 8 and 9 (the engine itself has no such
+        mode)."""
+
+        def _make_step(self, fn, fixed, feeds, warm_fixed=None):
+            return EagerStep(fn, fixed)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    counters = (fir.fir_filter_bank, mriq.mriq_compute_q, FA.flash_attention,
-                DA.decode_attention, SS.ssm_scan, RS.rglru_scan, RN.rmsnorm)
+    counters = launch_counters()
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1219,12 +1277,16 @@ def main() -> int:
         rows[name]["launches"] = count
 
     # ---- 6, 8, 9. serve a full-width model through the planner ----------
+    decode_ms: dict = {}
+
     def serve_arch(arch: str, hopper: tuple[str, ...]) -> dict:
         """Plan ``make_lm_program(arch)`` (then a cache hit), draw the full
-        model on the card, serve the request mix with the ``hopper``
-        regions over the planned pattern, and hold each request's prefill
-        logits under hopper against ref.  Every launch counter is zeroed
-        first; returns the counts of this serving path."""
+        model on the card, serve the request mix twice with the ``hopper``
+        regions over the planned pattern (captures, then replays) and once
+        on an eager twin, time the decode step both ways, and hold each
+        request's prefill logits under hopper against ref.  Every launch
+        counter is zeroed first; returns the counts of planning and the
+        engine's two rounds."""
         for counter in counters:
             counter.launches = 0
         with tempfile.TemporaryDirectory() as tmp:
@@ -1266,34 +1328,106 @@ def main() -> int:
                              seed=0, impl=impl)
         prompts = [F.synthetic_request(ncfg, n, seed=100 + i)[0]
                    for i, n in enumerate(SERVE_PROMPTS)]
-        for prompt in prompts:
-            engine.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
-        t0 = time.perf_counter()
-        done = engine.run_to_completion()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
-        print(f"launches while serving: {launches}")
-        st = engine.stats()
-        for req in done:
-            print(f"req {req.rid}: prompt {req.tokens.size:4d} (bucket "
-                  f"{req.bucket:4d}) | wait {req.queue_wait_s * 1e3:8.1f} ms | ttft "
-                  f"{req.ttft_s * 1e3:8.1f} ms | decode {req.decode_tps:7.1f} tok/s "
-                  f"| {len(req.generated)} tokens")
-        print(f"served {st['requests_finished']} requests / "
-              f"{st['generated_tokens']} tokens in {wall:.2f} s "
-              f"({st['generated_tokens'] / wall:.1f} tok/s aggregate) with "
-              f"{impl.describe()}; TTFT mean {st['ttft_s_mean'] * 1e3:.1f} ms, "
-              f"p50 {st['ttft_s_p50'] * 1e3:.1f} ms; decode tok/s per request mean "
-              f"{st['decode_tps_mean']:.1f}; peak memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+        def serve_round(eng, label: str):
+            """Serve the mix on ``eng``; check it, print it, return the
+            streams, the summary stats and the launches of the round."""
+            before = {c.__name__: c.launches for c in counters}
+            traces = eng.prefill_traces
+            built = ("first calls" if isinstance(eng, EagerTwin)
+                     else "captures")
+            for prompt in prompts:
+                eng.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
+            t0 = time.perf_counter()
+            eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            done = eng.drain_finished()
+            launched = {c.__name__: c.launches - before[c.__name__]
+                        for c in counters}
+            for req in done:
+                print(f"  req {req.rid}: prompt {req.tokens.size:4d} (bucket "
+                      f"{req.bucket:4d}) | wait {req.queue_wait_s * 1e3:8.1f} ms "
+                      f"| ttft {req.ttft_s * 1e3:8.1f} ms | decode "
+                      f"{req.decode_tps:7.1f} tok/s | {len(req.generated)} "
+                      "tokens")
+            print(f"{label}: served {st['requests_finished']} requests / "
+                  f"{st['generated_tokens']} tokens in {wall:.3f} s "
+                  f"({st['generated_tokens'] / wall:.1f} tok/s aggregate); "
+                  f"TTFT mean {st['ttft_s_mean'] * 1e3:.1f} ms, p50 "
+                  f"{st['ttft_s_p50'] * 1e3:.1f} ms; decode tok/s per request "
+                  f"mean {st['decode_tps_mean']:.1f}; prefill {built} "
+                  f"{eng.prefill_traces - traces} (total {eng.prefill_traces}"
+                  f", buckets {st['buckets']}); launches {launched}; peak "
+                  f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+                  "GiB")
+            if (len(done) != len(SERVE_PROMPTS)
+                    or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
+                    or tuple(r.bucket for r in done) != SERVE_BUCKETS):
+                raise AssertionError(
+                    f"serve {arch} {label}: {len(done)} finished, tokens "
+                    f"{[len(r.generated) for r in done]}, buckets "
+                    f"{[r.bucket for r in done]}")
+            return [r.generated for r in done], launched
+
+        # round 1 captures one prefill graph per bucket and the decode
+        # graph; round 2 replays them and must capture nothing
+        streams, launches = serve_round(engine, "round 1 (captures)")
+        traces = engine.prefill_traces
+        again, replayed = serve_round(engine, "round 2 (replays)")
+        launches = {k: v + replayed[k] for k, v in launches.items()}
+        print(f"launches while serving (planning and both rounds): {launches}")
         print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
-        if (len(done) != len(SERVE_PROMPTS)
-                or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
-                or tuple(r.bucket for r in done) != SERVE_BUCKETS):
-            raise AssertionError(f"serve {arch}: {len(done)} finished, tokens "
-                                 f"{[len(r.generated) for r in done]}, buckets "
-                                 f"{[r.bucket for r in done]}")
+        if traces != len(SERVE_BUCKETS) or engine.prefill_traces != traces:
+            raise AssertionError(f"serve {arch}: {traces} prefill captures in "
+                                 f"round 1, {engine.prefill_traces - traces} in "
+                                 "round 2")
+        if again != streams:
+            raise AssertionError(f"serve {arch}: round 2's greedy streams "
+                                 "differ from round 1's")
+        silent = [REGION_KERNEL[r] for r in hopper
+                  if not replayed[REGION_KERNEL[r]]]
+        if silent:
+            raise AssertionError(f"serve {arch}: round 2 counted no launch of "
+                                 f"{silent}")
+        # the eager twin: the same step functions, called eagerly
+        twin = EagerTwin(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                         seed=0, impl=impl)
+        eager_streams, _ = serve_round(twin, "eager twin")
+        del twin
+        torch.cuda.empty_cache()
+        if eager_streams != streams:
+            raise AssertionError(f"serve {arch}: the graphs' greedy streams "
+                                 "differ from the eager twin's")
+        print("greedy streams: round 1 = round 2 = eager twin")
+
+        # one decode step with all slots active, as a graph replay and as
+        # the eager step function (the twin's path), on the engine's cache
+        toks = np.asarray(streams, np.int32)[:SERVE_SLOTS, -1:]
+        pos = np.asarray(SERVE_PROMPTS[:SERVE_SLOTS], np.int32) + 8
+        replay = engine._gen.decode
+        eager = EagerStep(replay.step.fn, replay.step.fixed)
+        steps = {"graph": lambda: replay(toks, pos),
+                 "eager": lambda: eager(toks, pos)}
+        times = {k: [] for k in steps}
+        for name in ("graph", "eager", "eager", "graph"):
+            for _ in range(12):
+                t0 = time.perf_counter()
+                steps[name]()
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        ms = {k: statistics.median(v[2:12] + v[14:]) * 1e3
+              for k, v in times.items()}
+        print(f"decode step [{SERVE_SLOTS} slots] host clock, synchronized, "
+              f"median of 20: graph replay {ms['graph']:.3f} ms, eager "
+              f"{ms['eager']:.3f} ms ({ms['eager'] / ms['graph']:.2f}x)")
+        prof = {}
+        for k, fn in steps.items():
+            prof[k] = profile_step(torch, fn, ms[k])
+            print(f"  profiled {k}: {prof[k]}")
+        del replay, eager, steps
+        decode_ms[arch] = (ms, prof)
 
         # the prefill logits of each request under hopper against ref (the
         # engine's own prefill entry point), with offload as the noise floor
@@ -1333,6 +1467,7 @@ def main() -> int:
             raise AssertionError(f"serve {arch}: hopper and ref prefill logits "
                                  f"differ by {worst:.3e} > {tol:.3e}")
         del engine, params, leaves
+        gc.collect()                 # the engine's graphs refer back to it
         torch.cuda.empty_cache()
         return launches
 
@@ -1378,6 +1513,10 @@ def main() -> int:
     for name in ("rglru_scan", "flash_attention"):
         if hybrid_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+
+    print("decode step [4 slots], graph replay / eager (ms, host clock): "
+          + ", ".join(f"{a} {m['graph']:.3f} / {m['eager']:.3f}"
+                      for a, (m, _) in decode_ms.items()))
 
     # flash serves two main paths: Mistral's (head_dim 128) and
     # recurrentgemma's local attention (head_dim 256)

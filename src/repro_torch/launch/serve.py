@@ -9,8 +9,10 @@ With ``--auto-offload`` the launcher runs the block-level offload planner
 (``models/offload_program.py``) first, against the plan cache
 (``--plan-cache``), and serves with the selected pattern; only the first
 launch on a given (arch, shapes, card) pays for the measurements.  The
-port has no online replanning yet (slice 3), so the JAX launcher's
-``--replan-*`` and ``--verify-workers`` flags are absent.
+footer prints the prefill steps built per bucket: CUDA-graph captures on
+a card, first calls on the CPU (the JAX launcher's compilations).  The
+port has no online replanning yet, so the JAX launcher's ``--replan-*``
+and ``--verify-workers`` flags are absent.
 """
 from __future__ import annotations
 
@@ -119,8 +121,9 @@ def main(argv=None) -> None:
     print(f"served {s['requests_finished']} requests / "
           f"{s['generated_tokens']} tokens in {wall:.2f} s on {dev} "
           f"({s['generated_tokens']/wall:.1f} tok/s aggregate)")
-    print(f"prefill buckets: {s['buckets']}; serving pattern "
-          f"{engine.impl.describe()}")
+    what = "captures" if dev.type == "cuda" else "first calls"
+    print(f"prefill {what}: {s['prefill_traces']} (buckets {s['buckets']}); "
+          f"serving pattern {engine.plan_impl.describe()}")
 
 
 if __name__ == "__main__":

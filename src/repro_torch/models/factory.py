@@ -101,8 +101,10 @@ def prefill_bucket(n: int, max_len: int,
 def make_bucketed_prefill_step(cfg: ModelConfig, impl: Optional[Impl] = None,
                                ctx: Optional[int] = None):
     """Prefill over right-padded prompts: ``(params, batch, length)`` where
-    batch['tokens'] is [B, bucket] and ``length`` the count of real tokens;
-    logits and caches are exact for the real tokens."""
+    batch['tokens'] is [B, bucket] and ``length`` the count of real tokens,
+    an int or a 0-d int32 tensor on the model's device (the serving
+    engine's graphs feed a tensor, as the JAX engine feeds a traced
+    scalar); logits and caches are exact for the real tokens."""
     impl = _merged(cfg, impl)
 
     def prefill_step(params, batch, length):

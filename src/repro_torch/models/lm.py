@@ -252,14 +252,18 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
 
     ctx: cache capacity (>= prompt length); defaults to the prompt length.
     length: count of REAL prompt tokens when ``tokens`` is right-padded to
-    a bucket (serving-engine bucketed prefill).  The logits are then taken
-    at the last real position and the caches (KV and recurrent state) are
-    masked so they equal an unpadded prefill of ``length`` tokens.  None =
+    a bucket (serving-engine bucketed prefill), an int or a 0-d integer
+    tensor on the model's device.  The logits are then taken at the last
+    real position and the caches (KV and recurrent state) are masked so
+    they equal an unpadded prefill of ``length`` tokens.  An int becomes
+    such a tensor, so both take one path; it reads no value back to the
+    host, so one CUDA graph per bucket serves every length in it.  None =
     every token is real."""
     x = _embed_inputs(params, cfg, tokens)
     bsz, s_tot = x.shape[:2]
     ctx = max(ctx or s_tot, s_tot)
-    valid = None if length is None else int(length)
+    valid = None if length is None else torch.as_tensor(
+        length, dtype=torch.int32, device=x.device)
     positions = _positions(x)
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
     cache = _empty(cache_template(cfg, bsz, ctx), x.device)
@@ -275,8 +279,12 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
         x = _apply_unit_seq_exact(params["tail"], cache["tail"], x, cfg=cfg,
                                   kinds=tail_kinds, positions=positions,
                                   impl=impl, ctx=ctx, length=valid)
-    last = s_tot if valid is None else valid
-    return _logits(params, x[:, last - 1:last], cfg), cache
+    if valid is None:
+        return _logits(params, x[:, -1:], cfg), cache
+    # the last real position, by a gather (JAX: a dynamic slice)
+    last = (valid.to(torch.long) - 1).clamp(0, s_tot - 1)
+    x_last = x.gather(1, last.expand(bsz, 1, x.shape[-1]))
+    return _logits(params, x_last, cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, *, cfg: ModelConfig, impl=None):

@@ -29,13 +29,15 @@ from repro_torch.core.regions import dispatch, register_variant
 # ---------------------------------------------------------------------------
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                           state: torch.Tensor | None = None,
-                          length: int | None = None):
+                          length: int | torch.Tensor | None = None):
     """x: [B, S, D]; w: [K, D]; state: [B, K-1, D] trailing context or None.
 
-    ``length``: only the first ``length`` positions of x are real — the
-    returned state is then the K-1 inputs *ending at* position ``length``
-    (bucketed prefill right-pads x, and the trailing context must not
-    contain padding).  None = all S positions are real.
+    ``length`` (an int or a 0-d integer tensor on x's device): only the
+    first ``length`` positions of x are real — the returned state is then
+    the K-1 inputs *ending at* position ``length`` (bucketed prefill
+    right-pads x, and the trailing context must not contain padding),
+    taken with a gather so that a tensor ``length`` needs no host sync.
+    None = all S positions are real.
 
     Returns (y [B, S, D], new_state [B, K-1, D])."""
     k = w.shape[0]
@@ -50,7 +52,8 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
         new_state = xp[:, -(k - 1):]
     else:
         # inputs at positions [length-(K-1), length) = xp[length : length+K-1]
-        new_state = xp[:, length:length + k - 1]
+        idx = length + torch.arange(k - 1, device=x.device)
+        new_state = xp.index_select(1, idx.to(torch.long))
     return y.to(x.dtype), new_state
 
 

@@ -461,3 +461,226 @@ def test_discovered_mistral_rmsnorm_hopper_on_cuda(cuda_device):
     assert bool(torch.isfinite(got).all())
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) / scale < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's CUDA graphs (serving/graphs.py), reduced models in
+# their serving type (bf16) with the hopper kernels on the prefill path
+# ---------------------------------------------------------------------------
+GRAPH_HOPPER = {"mistral-nemo-12b": {"attn_core": "hopper"},
+                "falcon-mamba-7b": {"ssm_scan": "hopper"},
+                "recurrentgemma-2b": {"rglru_scan": "hopper",
+                                      "attn_core": "hopper"}}
+GRAPH_CTX = 32
+
+
+def _graph_model(arch, device):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.regions import Impl
+    from repro_torch.models import factory as F
+    cfg = get_config(arch).reduced()
+    params = F.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    impl = Impl({**F.default_impl(cfg), **GRAPH_HOPPER[arch]})
+    return cfg, params, impl
+
+
+def _padded(n, bucket, seed):
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :n] = np.random.default_rng(seed).integers(0, 256, n)
+    return tokens
+
+
+def _eager_prefill(step, params, tokens, n, device):
+    return step(params, {"tokens": torch.from_numpy(tokens).to(device)},
+                torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def _slot_leaves(cache, slot):
+    from repro_torch.models.params import tree_leaves
+    return [t[:, slot] if top == "stack" else t[slot]
+            for top, sub in cache.items() for t in tree_leaves(sub)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(GRAPH_HOPPER))
+def test_step_graphs_replay_the_eager_steps_bit_for_bit_on_cuda(cuda_device,
+                                                                arch):
+    """Prefill graphs (one per bucket, fed every length in it) and the
+    decode graph (captured against a live cache, warmed on another) give
+    the eager step functions' logits and cache leaves bit for bit, step
+    after step, with greedy tokens fed back."""
+    from repro_torch.models import factory as F
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.serving.engine import cache_insert
+    from repro_torch.serving.graphs import StepGraph
+    cfg, params, impl = _graph_model(arch, cuda_device)
+    prefill = F.make_bucketed_prefill_step(cfg, impl=impl, ctx=GRAPH_CTX)
+    decode = F.make_serve_step(cfg, impl=impl)
+
+    def prefill_fn(p, tokens, length):
+        return prefill(p, {"tokens": tokens}, length)
+
+    live = F.init_cache(cfg, 2, GRAPH_CTX, cuda_device)
+    graphs = {b: StepGraph(prefill_fn, (params,),
+                           {"tokens": np.zeros((1, b), np.int32),
+                            "length": np.asarray(b, np.int32)})
+              for b in (8, 16)}
+    last = np.zeros(2, np.int32)
+    for slot, (n, bucket) in enumerate(((5, 8), (13, 16))):
+        for m in (n, bucket, 1):                  # every length in a bucket
+            tokens = _padded(m, bucket, seed=m)
+            g_logits, g_cache = graphs[bucket](tokens, np.asarray(m, np.int32))
+            e_logits, e_cache = _eager_prefill(prefill, params, tokens, m,
+                                               cuda_device)
+            assert torch.equal(g_logits, e_logits), (bucket, m)
+            for a, b in zip(tree_leaves(g_cache), tree_leaves(e_cache)):
+                assert torch.equal(a, b), (bucket, m)
+        cache_insert(live, e_cache, slot)
+        last[slot] = int(e_logits[0, -1].argmax())
+    twin = tree_map(lambda t: t.clone(), live)
+    step = StepGraph(decode, (params, live),
+                     {"tokens": np.zeros((2, 1), np.int32),
+                      "pos": np.zeros(2, np.int32)},
+                     warm_fixed=(params, F.init_cache(cfg, 2, GRAPH_CTX,
+                                                      cuda_device)))
+    pos = np.array([5, 13], np.int32)
+    for _ in range(4):
+        g_logits, _ = step(last[:, None], pos)
+        e_logits, _ = decode(params, twin,
+                             torch.from_numpy(last[:, None]).to(cuda_device),
+                             torch.from_numpy(pos).to(cuda_device))
+        assert torch.equal(g_logits, e_logits)
+        for a, b in zip(tree_leaves(live), tree_leaves(twin)):
+            assert torch.equal(a, b)
+        last = e_logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+        pos = pos + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(GRAPH_HOPPER))
+def test_step_graph_launch_counters_count_replays_on_cuda(cuda_device, arch):
+    """A capture launches no kernel, so it adds nothing to the counters;
+    every replay adds what one eager call launches."""
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import factory as F
+    from repro_torch.serving.graphs import StepGraph
+    cfg, params, impl = _graph_model(arch, cuda_device)
+    prefill = F.make_bucketed_prefill_step(cfg, impl=impl, ctx=GRAPH_CTX)
+    counters = launch_counters()
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    tokens = _padded(6, 8, seed=0)
+    before = counts()
+    _eager_prefill(prefill, params, tokens, 6, cuda_device)
+    torch.cuda.synchronize()
+    per_call = {k: v - before[k] for k, v in counts().items()}
+    assert any(per_call.values()), per_call
+    before = counts()
+    graph = StepGraph(lambda p, t, n: prefill(p, {"tokens": t}, n), (params,),
+                      {"tokens": tokens, "length": np.asarray(8, np.int32)})
+    # the warm-up is one eager call; the capture adds nothing
+    assert counts() == {k: before[k] + per_call[k] for k in before}
+    for replay in range(1, 4):
+        graph(tokens, np.asarray(6, np.int32))
+        assert counts() == {k: before[k] + (1 + replay) * per_call[k]
+                            for k in before}
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_a_step_makes_capture_raise_on_cuda(cuda_device):
+    """``.item()`` inside a step fails its capture, and StepGraph raises
+    (no eager fallback).  Run in a child process, so that the failed
+    capture leaves no state behind in this one."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+    script = textwrap.dedent("""
+        import numpy as np, torch
+        from repro_torch.kernels import launch_counters
+        from repro_torch.serving.graphs import StepGraph
+        w = torch.ones(4, device="cuda")
+        before = [c.launches for c in launch_counters()]
+        try:
+            StepGraph(lambda w, x: w * x.sum().item(), (w,),
+                      {"x": np.ones(4, np.float32)})
+        except Exception as err:
+            print("raised", type(err).__name__, str(err).splitlines()[0])
+        else:
+            print("captured")
+        assert [c.launches for c in launch_counters()] == before
+    """)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised"), out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(GRAPH_HOPPER))
+def test_prefill_replays_of_two_buckets_keep_each_slot_on_cuda(cuda_device,
+                                                               arch):
+    """The shared-pool rule: both buckets captured first (bucket 16's
+    outputs may lie where bucket 8 keeps its intermediates), then prefill
+    replays of buckets 8, 16 and 8 into three slots — each slot holds its
+    own request's eager prefill cache afterwards."""
+    from repro_torch.models import factory as F
+    from repro_torch.serving.engine import ServeEngine, cache_insert
+    cfg, params, impl = _graph_model(arch, cuda_device)
+    eng = ServeEngine(cfg, params, slots=3, ctx=GRAPH_CTX, impl=impl)
+    gen = eng._gen
+    gen.prefill.warm(8)
+    gen.prefill.warm(16)
+    assert eng.prefill_traces == 2
+    prefill = F.make_bucketed_prefill_step(cfg, impl=impl, ctx=GRAPH_CTX)
+    want = []
+    for slot, (n, bucket) in enumerate(((5, 8), (14, 16), (7, 8))):
+        tokens = _padded(n, bucket, seed=10 + slot)
+        logits, one = gen.prefill(tokens, n)
+        cache_insert(eng.cache, one, slot)
+        e_logits, e_cache = _eager_prefill(prefill, params, tokens, n,
+                                           cuda_device)
+        assert torch.equal(logits, e_logits)
+        want.append(_slot_leaves(e_cache, 0))
+    assert eng.prefill_traces == 2
+    for slot, leaves in enumerate(want):
+        for got, exp in zip(_slot_leaves(eng.cache, slot), leaves):
+            assert torch.equal(got, exp), slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(GRAPH_HOPPER))
+def test_graph_engine_serves_the_eager_twins_streams_on_cuda(cuda_device,
+                                                            arch):
+    """The engine (graphs) and an eager twin (the same step functions,
+    called eagerly) serve the same greedy streams over mixed buckets; a
+    second round on the graph engine captures nothing new."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.graphs import EagerStep
+
+    class EagerTwin(ServeEngine):
+        def _make_step(self, fn, fixed, feeds, warm_fixed=None):
+            return EagerStep(fn, fixed)
+
+    cfg, params, impl = _graph_model(arch, cuda_device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)
+               for n in (3, 12, 7, 16, 9)]
+    runs = []
+    for cls in (ServeEngine, EagerTwin):
+        eng = cls(cfg, params, slots=2, ctx=GRAPH_CTX, impl=impl)
+        rounds = []
+        for _ in range(2):
+            for p in prompts:
+                eng.submit(p, max_new_tokens=6)
+            eng.run_to_completion()
+            rounds.append([r.generated for r in eng.drain_finished()])
+            assert eng.prefill_traces == 2          # buckets 8 and 16
+        assert rounds[0] == rounds[1]
+        runs.append(rounds[0])
+    assert runs[0] == runs[1]

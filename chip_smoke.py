@@ -46,10 +46,12 @@ Phases, each printed as it runs; any failure exits non-zero:
 6. serve   — the slice-2 main path: plans ``make_lm_program
    ("mistral-nemo-12b")`` (staged, temporary plan cache, then a cache hit),
    builds full-width Mistral-NeMo-12B (40 layers, random weights from a
-   seeded generator on the card) and serves 6 greedy requests (prompts
-   2,060 / 2,048 / 1,000 / 300 / 100 / 9 tokens, buckets 2,080 / 2,048 /
-   1,024 / 512 / 128 / 16) on 4 slots at ctx 2,080 with ``attn_core=hopper``
-   over the planned pattern, twice on one engine: round 1 captures a CUDA
+   seeded generator on the card) and serves 3 greedy requests (prompts
+   2,060 / 300 / 9 tokens, buckets 2,080 / 512 / 16; phase 9 serves the
+   whole mix of 6: 2,060 / 2,048 / 1,000 / 300 / 100 / 9, buckets 2,080 /
+   2,048 / 1,024 / 512 / 128 / 16) on 4 slots at ctx 2,080 with
+   ``attn_core=hopper`` over the planned pattern, twice on one engine:
+   round 1 captures a CUDA
    graph per prefill bucket and the decode graph, round 2 replays them and
    must capture nothing; an eager twin (the same step functions, called
    eagerly) serves the mix once more.  Every request must finish with 16
@@ -66,12 +68,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``decode_attention`` must have launched in this phase.
 8. serve falcon-mamba-7b — as phase 6 for the Mamba-1 SSM family: plans
    ``make_lm_program("falcon-mamba-7b")``, builds the full model (64
-   layers, d_inner 8,192, N=16) and serves the same mix in the same way
-   with ``ssm_scan=hopper``; ``ssm_scan`` must have launched in this phase
+   layers, d_inner 8,192, N=16) and serves the same 3 requests in the same
+   way with ``ssm_scan=hopper``; ``ssm_scan`` must have launched in this phase
    (and in round 2) and the prefill logits under hopper must agree with
    ``ssm_scan=ref``.
-9. serve recurrentgemma-2b — the same for the RG-LRU / local-attention
-   hybrid (26 layers = 8 units of (RG-LRU, RG-LRU, local attention) + a
+9. serve recurrentgemma-2b — the same, over all 6 requests, for the
+   RG-LRU / local-attention hybrid (26 layers = 8 units of (RG-LRU, RG-LRU, local attention) + a
    2-layer tail; window 2,048, 10 query heads over 1 kv head of width
    256) with ``rglru_scan=hopper`` and ``attn_core=hopper``; ``rglru_scan``
    and ``flash_attention`` must have launched in this phase (and in round
@@ -87,6 +89,52 @@ Phases, each printed as it runs; any failure exits non-zero:
    must be a cache hit), and run with ``rmsnorm=hopper`` over the selected
    pattern; its logits are held against the captured program's, and
    ``rmsnorm`` must have launched (81 times per forward).
+11. strategies — the slice-8 main path, the rest of Step 4: tdFIR (HPEC
+   set 1) and MRI-Q (as phase 4) planned under staged, genetic, surrogate
+   and exhaustive at d=4, with ``verify_workers`` 1 and then 4, each on a
+   fresh plan cache (the staged plans' compile steps build the app's
+   kernel with ``nvcc`` into a fresh directory, so they show a real
+   compile; ``REPRO_TORCH_BUILD_DIR`` names the directory; one timed rep a
+   pattern).  The workers=4 plan runs every pattern on the card as well,
+   but is told the workers=1 plan's medians for the patterns both measure:
+   the apps' loop-faithful refs are host-bound and vary 10-40% between
+   runs, so two independent searches can part at a near-tie, and the
+   executor's contract is the same sequence for the same measurements.  So
+   the same-sequence check shows that the pipelined executor does not
+   change what the strategy sees; what the card shows is that the
+   workers=4 plan's own medians are those of the same work: each within
+   ``WORKERS_MEDIAN_FACTOR`` of the workers=1 median.  No pattern may be
+   measured twice, workers 1 and 4 must measure the same sequence and
+   select the same pattern, the surrogate
+   must spend fewer real measurements than the GA, a repeat plan against
+   the warm cache must spend none, and ``fir_filter_bank`` and
+   ``mriq_compute_q`` must launch.  Prints per app and strategy the
+   measurements spent, the selected pattern, its median and the compile
+   seconds, serial and pipelined.
+12. faults — tdFIR wrapped with four injected faults (a compile-step hang
+   under ``compile_timeout_s``, a transient exception that is retried, a
+   NaN at run on the runner-up ``fir_bank=offload``, which is quarantined,
+   and a slow rep, which is MAD-rejected), planned exhaustively at d=8: the
+   selected pattern must equal the fault-free plan's, the strike must be
+   in the plan cache under the measurement key, and a second search must
+   skip the struck gene.
+13. replan — full-width recurrentgemma-2b (4 slots, ctx 2,080, random
+   weights from a seed) served from the all-ref plan under scripted drift
+   (prompts of bucket 128, then of bucket 2,048 at twice the arrival
+   rate) with a drift-triggered replanner (``make_replan_fn``): the
+   search, ``prepare_plan`` (graphs captured on the worker's side stream)
+   and the canary run on the replanner's thread while the engine ticks,
+   and the swap lands between ticks.  No request may be dropped; every
+   stream must equal a never-swapped twin's under the canary rule (the
+   twin on the old plan for requests admitted before the swap, one on the
+   new plan after it); ``flash_attention`` and ``rglru_scan`` must launch
+   after the swap.  Then a generation captured through a device-side NaN
+   fault is armed and offered: it must be rolled back within its tick with
+   no request lost, ``rollbacks`` 1 and ``degraded`` in ``stats()`` (and 0
+   and false just before it).  Prints the memory allocated and its peak
+   before the swap, after it and after the rollback.
+   Prints the swap tick's time against the median tick and the decode
+   tok/s before and after the swap.
 
 Every launch counter is set to 0 just before the path it belongs to runs
 and read just after it; the comparisons of phase 3 do not count.  A graph
@@ -102,12 +150,14 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 # published H100 SXM peaks at the full 700 W limit (NVIDIA data sheet):
@@ -123,6 +173,10 @@ SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "recurrentgemma-2b"
 SERVE_PROMPTS = (2060, 2048, 1000, 300, 100, 9)   # buckets 2080 ... 16
 SERVE_BUCKETS = (2080, 2048, 1024, 512, 128, 16)
+# phases 6 and 8 serve three of the six prompts (buckets 2,080, 512 and 16;
+# the whole script has to fit the time it had before phases 11-13 came);
+# phase 9 serves all six
+SHORT_MIX = (0, 3, 5)
 SERVE_CTX = 2080
 SERVE_SLOTS = 4
 SERVE_NEW_TOKENS = 16
@@ -144,6 +198,21 @@ REGION_KERNEL = {"attn_core": "flash_attention", "ssm_scan": "ssm_scan",
 LOGIT_NOISE_FACTOR = 3.0
 LOGIT_TOL_MIN = 0.05
 EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
+# phase 13's scripted drift: ticks of bucket-128 prompts, then of two
+# bucket-2,048 prompts a tick; long-prompt traffic goes on (at most this
+# many ticks) until the replanner's swap has landed
+REPLAN_SHORT = (65, 120)       # prompt lengths: bucket 128
+REPLAN_LONG = (1100, 2000)     # bucket 2,048
+REPLAN_SHORT_TICKS = 20
+REPLAN_LONG_TICKS = 8
+REPLAN_MAX_EXTRA = 64          # long prompts submitted while the swap is due
+REPLAN_MAX_WAIT_S = 240.0
+# phase 11: the workers=4 plan's own median of a pattern against the
+# workers=1 plan's, one rep each: within this factor either way (the refs
+# are host-bound; sub-millisecond patterns differed up to 2.8x over four
+# earlier runs on the H100).  A pipelined executor that timed other work
+# (a compile inside a rep, an empty call) is off by far more.
+WORKERS_MEDIAN_FACTOR = 5.0
 # the first versions of the attention kernels (scalar FP32 FMAs over float32
 # tiles; one decode block per (b, kv head)) at phase 3's timed shapes, from
 # an earlier run on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
@@ -159,8 +228,12 @@ FIR_FIRST_MS = 0.0148
 ROOT = Path(__file__).resolve().parent
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name} ==", flush=True)
+    print(f"\n== {name} == ({time.perf_counter() - _START:.1f} s into the "
+          "script)", flush=True)
 
 
 def cuda_ms(torch, fn, calls: int, groups: int = 7) -> tuple[float, str]:
@@ -477,13 +550,22 @@ def main() -> int:
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.graphs import EagerStep
+    from repro_torch.core.device import backend_name
+    from repro_torch.core.faults import (DeviceNaN, FaultInjector, FaultSpec,
+                                         wrap_program)
+    from repro_torch.core.plan_cache import measurement_cache_key
+    from repro_torch.core import search as search_mod
+    from repro_torch.core.search import impl_key
+    from repro_torch.launch.serve import make_offloader, make_replan_fn
+    from repro_torch.serving.replan import (DriftConfig, DriftDetector,
+                                            ReplanConfig, Replanner)
 
     class EagerTwin(ServeEngine):
         """The engine with its steps called eagerly, not captured: the
         yardstick of phases 6, 8 and 9 (the engine itself has no such
         mode)."""
 
-        def _make_step(self, fn, fixed, feeds, warm_fixed=None):
+        def _make_step(self, fn, fixed, feeds, **_):
             return EagerStep(fn, fixed)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -509,7 +591,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     print(f"built {built or 'nothing (up to date)'} in "
-          f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+          f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
     for name in _build.SOURCES:
         entries = ptxas_entries(_build.ptxas_report(name))
         print(f"-- ptxas {name}.cu: {len(entries)} kernels; registers "
@@ -1279,7 +1361,9 @@ def main() -> int:
     # ---- 6, 8, 9. serve a full-width model through the planner ----------
     decode_ms: dict = {}
 
-    def serve_arch(arch: str, hopper: tuple[str, ...]) -> dict:
+    def serve_arch(arch: str, hopper: tuple[str, ...],
+                   mix: tuple[int, ...] = tuple(range(len(SERVE_PROMPTS)))
+                   ) -> dict:
         """Plan ``make_lm_program(arch)`` (then a cache hit), draw the full
         model on the card, serve the request mix twice with the ``hopper``
         regions over the planned pattern (captures, then replays) and once
@@ -1326,8 +1410,9 @@ def main() -> int:
               f" GiB, drawn on the card in {time.perf_counter() - t0:.1f} s")
         engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
                              seed=0, impl=impl)
-        prompts = [F.synthetic_request(ncfg, n, seed=100 + i)[0]
-                   for i, n in enumerate(SERVE_PROMPTS)]
+        prompts = [F.synthetic_request(ncfg, SERVE_PROMPTS[i], seed=100 + i)[0]
+                   for i in mix]
+        buckets = tuple(SERVE_BUCKETS[i] for i in mix)
 
         def serve_round(eng, label: str):
             """Serve the mix on ``eng``; check it, print it, return the
@@ -1362,13 +1447,18 @@ def main() -> int:
                   f", buckets {st['buckets']}); launches {launched}; peak "
                   f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
                   "GiB")
-            if (len(done) != len(SERVE_PROMPTS)
+            if (len(done) != len(prompts)
                     or any(len(r.generated) != SERVE_NEW_TOKENS for r in done)
-                    or tuple(r.bucket for r in done) != SERVE_BUCKETS):
+                    or tuple(r.bucket for r in done) != buckets):
                 raise AssertionError(
                     f"serve {arch} {label}: {len(done)} finished, tokens "
                     f"{[len(r.generated) for r in done]}, buckets "
                     f"{[r.bucket for r in done]}")
+            # a fault of the served plan would roll back to the plain one
+            if st["rollbacks"] or st["degraded"]:
+                raise AssertionError(
+                    f"serve {arch} {label}: rolled back ({st['rollbacks']}, "
+                    f"degraded {st['degraded']}): {st['last_fault']}")
             return [r.generated for r in done], launched
 
         # round 1 captures one prefill graph per bucket and the decode
@@ -1379,7 +1469,7 @@ def main() -> int:
         launches = {k: v + replayed[k] for k, v in launches.items()}
         print(f"launches while serving (planning and both rounds): {launches}")
         print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
-        if traces != len(SERVE_BUCKETS) or engine.prefill_traces != traces:
+        if traces != len(buckets) or engine.prefill_traces != traces:
             raise AssertionError(f"serve {arch}: {traces} prefill captures in "
                                  f"round 1, {engine.prefill_traces - traces} in "
                                  "round 2")
@@ -1405,7 +1495,9 @@ def main() -> int:
         # one decode step with all slots active, as a graph replay and as
         # the eager step function (the twin's path), on the engine's cache
         toks = np.asarray(streams, np.int32)[:SERVE_SLOTS, -1:]
-        pos = np.asarray(SERVE_PROMPTS[:SERVE_SLOTS], np.int32) + 8
+        pos = np.asarray([p.size for p in prompts][:SERVE_SLOTS], np.int32) + 8
+        toks = np.resize(toks, (SERVE_SLOTS, 1))
+        pos = np.resize(pos, SERVE_SLOTS)
         replay = engine._gen.decode
         eager = EagerStep(replay.step.fn, replay.step.fixed)
         steps = {"graph": lambda: replay(toks, pos),
@@ -1473,7 +1565,7 @@ def main() -> int:
 
     # ---- 6. serve full-width Mistral-NeMo-12B (slice-2 main path) -------
     phase("6. serve")
-    serve_launches = serve_arch(ARCH, ("attn_core",))
+    serve_launches = serve_arch(ARCH, ("attn_core",), SHORT_MIX)
     if serve_launches["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched on the main "
                              "path")
@@ -1503,7 +1595,7 @@ def main() -> int:
 
     # ---- 8. serve full-width falcon-mamba-7b (slice-3 main path) --------
     phase("8. serve falcon-mamba-7b")
-    ssm_launches = serve_arch(SSM_ARCH, ("ssm_scan",))
+    ssm_launches = serve_arch(SSM_ARCH, ("ssm_scan",), SHORT_MIX)
     if ssm_launches["ssm_scan"] <= 0:
         raise AssertionError("ssm_scan was not launched on the main path")
 
@@ -1635,6 +1727,460 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
+
+    # ---- 11. the rest of Step 4: strategies x verify_workers -----------
+    phase("11. strategies")
+    t11 = time.perf_counter()
+    for counter in counters:
+        counter.launches = 0
+    apps11 = {"tdfir": lambda: tdfir_app.make_program(TDFIR_FULL, TDFIR_FULL,
+                                                      device=dev),
+              "mriq": lambda: mriq_app.make_program(device=dev)}
+
+    def plan_fresh(make, cfg11, cold=False, replay=None):
+        """One plan on a fresh cache (and, with ``cold``, a fresh build
+        directory: the compile step builds the app's kernel with nvcc),
+        then a repeat plan against the warm cache.  With ``replay`` (pattern
+        -> Measurement of an earlier plan) every pattern is still built,
+        run and timed on the card, but the strategy is told the earlier
+        plan's median for a pattern both plans measured."""
+        told: list = []
+
+        def time_callable(*args, **kwargs):
+            m = real_time_callable(*args, **kwargs)
+            rec = replay.get(m.pattern) if replay else None
+            if m.ok and rec is not None:
+                told.append((m.pattern, m.run_seconds, rec.run_seconds))
+                m.run_seconds, m.runs = rec.run_seconds, list(rec.runs)
+            return m
+
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = PlanCache(Path(tmp) / "plans.json")
+            if cold:
+                os.environ["REPRO_TORCH_BUILD_DIR"] = str(Path(tmp) / "build")
+            search_mod.time_callable = time_callable
+            try:
+                t0 = time.perf_counter()
+                rep = AutoOffloader(cfg11).plan(make(), cache=cache)
+                wall = time.perf_counter() - t0
+            finally:
+                search_mod.time_callable = real_time_callable
+                os.environ.pop("REPRO_TORCH_BUILD_DIR", None)
+            again = AutoOffloader(cfg11).plan(make(), cache=cache)
+        if not again.from_cache or again.measurements:
+            raise AssertionError(f"{rep.program}/{rep.strategy}: the repeat "
+                                 "plan was not a zero-measurement cache hit")
+        return rep, wall, told
+
+    real_time_callable = search_mod.time_callable
+    print("app,strategy,workers,measured,selected,median_ms,compile_s_total,"
+          "compile_wall_s,verify_wall_s,plan_wall_s,cache_hits")
+    for app, make in apps11.items():
+        spent = {}
+        for strat in ("staged", "genetic", "surrogate", "exhaustive"):
+            runs = {}
+            for workers in (1, 4):
+                cfg11 = PlannerConfig(strategy=strat, max_measurements=4,
+                                      reps=1, warmup=1, seed=0,
+                                      verify_workers=workers)
+                replay = None
+                if workers == 4:
+                    one = runs[1][0]
+                    replay = {m.pattern: m for m in
+                              [one.baseline] + list(one.measurements)}
+                rep, wall, told = plan_fresh(make, cfg11, strat == "staged",
+                                             replay)
+                keys = [impl_key(m.impl) for m in rep.measurements]
+                if len(set(keys)) != len(keys) or not 0 < len(keys) <= 4:
+                    raise AssertionError(f"{app}/{strat}: measured {keys}")
+                if not (rep.baseline.ok and all(m.ok for m in rep.measurements)):
+                    raise AssertionError(f"{app}/{strat}: a failed measurement")
+                ex = rep.search_trace[-1]
+                runs[workers] = (rep, told)
+                print(f"{app},{strat},{workers},{len(rep.measurements)},"
+                      f"{Impl(rep.best_pattern).describe()},"
+                      f"{rep.best_seconds * 1e3:.3f},"
+                      f"{ex['compile_seconds_total']:.3f},"
+                      f"{ex['compile_wall_s']:.3f},{ex['verify_wall_s']:.3f},"
+                      f"{wall:.2f},{ex['compile_cache_hits']}")
+            (one, _), (four, told) = runs[1], runs[4]
+            ratios = [got / was for _, got, was in told]
+            print(f"# {app}/{strat}: workers=4 timed (and was told the "
+                  f"workers=1 median) " + ", ".join(
+                      f"{p} {got * 1e3:.3f} ({was * 1e3:.3f}) ms"
+                      for p, got, was in told)
+                  + f"; own/told ratio {min(ratios):.3f}-{max(ratios):.3f},"
+                  f" geometric mean {math.exp(statistics.fmean(map(math.log, ratios))):.3f}")
+            far = [(p, got, was) for p, got, was in told
+                   if not 1 / WORKERS_MEDIAN_FACTOR <= got / was
+                   <= WORKERS_MEDIAN_FACTOR]
+            if len(told) < len(four.measurements) + 1 or far:
+                raise AssertionError(
+                    f"{app}/{strat}: workers=4 medians not within "
+                    f"{WORKERS_MEDIAN_FACTOR}x of workers=1's: {far}, or "
+                    f"{len(told)} told for {len(four.measurements)} + 1")
+            if ([m.pattern for m in one.measurements]
+                    != [m.pattern for m in four.measurements]
+                    or one.best_pattern != four.best_pattern):
+                print(one.summary())
+                print(four.summary())
+                raise AssertionError(
+                    f"{app}/{strat}: verify_workers 1 and 4 measured "
+                    f"{[m.pattern for m in one.measurements]} -> "
+                    f"{one.best_pattern} and "
+                    f"{[m.pattern for m in four.measurements]} -> "
+                    f"{four.best_pattern}")
+            spent[strat] = len(one.measurements)
+        print(f"# {app}: real measurements: " + ", ".join(
+            f"{k} {v}" for k, v in spent.items()))
+        if not spent["surrogate"] < spent["genetic"]:
+            raise AssertionError(f"{app}: the surrogate spent "
+                                 f"{spent['surrogate']} real measurements, the "
+                                 f"GA {spent['genetic']}")
+    strat_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 11: {strat_launches}; phase wall "
+          f"{time.perf_counter() - t11:.1f} s")
+    for name in ("fir_filter_bank", "mriq_compute_q"):
+        if strat_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 11")
+
+    # ---- 12. faults injected into tdFIR's verification -----------------
+    phase("12. faults")
+    t12 = time.perf_counter()
+    for counter in counters:
+        counter.launches = 0
+    # exhaustive: its proposals do not hang on a single pattern beating the
+    # baseline in a noisy round 1, so the fault-free and the faulted plans
+    # measure the same 8 patterns (fir_bank=offload the eighth)
+    cfg12 = PlannerConfig(strategy="exhaustive", max_measurements=8, reps=5,
+                          warmup=1, compile_timeout_s=1.0,
+                          run_timeout_s=30.0, retry_backoff_s=0.0,
+                          quarantine_threshold=1)
+    winner12 = "fir_bank=hopper+fir_energy=offload+fir_load=offload"
+    specs12 = [
+        # the compile step of the winning pattern hangs past the watchdog
+        FaultSpec("hang", site="compile", match=winner12, times=1,
+                  delay_s=4.0),
+        # every pattern with fir_load=offload fails its first call once
+        FaultSpec("flaky", site="run", match="fir_load=offload", times=1),
+        # the runner-up destination of fir_bank produces NaN
+        FaultSpec("nan", site="run", match="fir_bank=offload", times=0,
+                  transient=False),
+        # the first timed rep of every fir_bank=hopper pattern is 50 ms slow
+        FaultSpec("slow", site="run", match="fir_bank=hopper", times=2,
+                  delay_s=0.05)]
+    prog12 = tdfir_app.make_program(TDFIR_FULL, TDFIR_FULL, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = AutoOffloader(cfg12).plan(prog12, cache=PlanCache(
+            Path(tmp) / "clean.json"))
+        print(clean.summary())
+        inj = FaultInjector(specs=specs12)
+        faulty = wrap_program(prog12, inj)
+        cache = PlanCache(Path(tmp) / "plans.json")
+        rep = AutoOffloader(cfg12).plan(faulty, cache=cache)
+        print(rep.summary())
+        fired = {k: inj.fired(k) for k in ("hang", "flaky", "nan", "slow")}
+        retried = [(m.pattern, m.attempts) for m in rep.measurements
+                   if m.attempts > 1]
+        rejected = [(m.pattern, m.outliers_rejected) for m in rep.measurements
+                    if m.outliers_rejected]
+        print(f"faults fired {fired}; retried {retried}; MAD-rejected reps "
+              f"{rejected}; quarantined {rep.quarantined}")
+        if rep.best_pattern != clean.best_pattern:
+            raise AssertionError(f"faults: selected {rep.best_pattern}, the "
+                                 f"fault-free plan {clean.best_pattern}")
+        if not all(fired.values()) or not retried or not rejected:
+            raise AssertionError(f"faults: not every fault fired and was "
+                                 f"tolerated: {fired} {retried} {rejected}")
+        records = cache.quarantine_for(measurement_cache_key(
+            faulty, backend_name(dev)))
+        if not any(r["gene"] == "fir_bank=offload" for r in records):
+            raise AssertionError(f"faults: no strike persisted: {records}")
+        nan_before = inj.fired("nan")
+        again = AutoOffloader(PlannerConfig(
+            strategy="staged", max_measurements=8, reps=2, warmup=1,
+            quarantine_threshold=1)).plan(faulty, cache=cache)
+        if (again.from_cache or "fir_bank=offload" not in again.quarantined
+                or inj.fired("nan") != nan_before
+                or any("fir_bank=offload" in m.pattern
+                       for m in again.measurements)):
+            raise AssertionError("faults: the second search did not skip the "
+                                 "struck gene")
+        print(f"second search (staged): skipped fir_bank=offload; "
+              f"{len(again.measurements)} measured, best "
+              f"{Impl(again.best_pattern).describe()}; persisted strikes "
+              f"{records}")
+    fault_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 12: {fault_launches}; phase wall "
+          f"{time.perf_counter() - t12:.1f} s")
+
+    # ---- 13. online replanning of full-width recurrentgemma-2b ---------
+    phase("13. replan")
+    t13 = time.perf_counter()
+    for counter in counters:
+        counter.launches = 0
+    ncfg = get_config(HYBRID_ARCH)
+    params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(13)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem13: dict = {}            # label -> (allocated, peak, reserved) in GiB
+
+    def memory(label, release=False):
+        """Record the memory allocated, its peak and the memory reserved
+        (graph pools included); ``release`` first returns the allocator's
+        unused blocks, freed pools among them, to the card."""
+        if release:
+            gc.collect()
+            torch.cuda.empty_cache()
+        mem13[label] = tuple(x / 2**30 for x in (
+            torch.cuda.memory_allocated(dev),
+            torch.cuda.max_memory_allocated(dev),
+            torch.cuda.memory_reserved(dev)))
+
+    def prompt(lo, hi):
+        return rng.integers(1, ncfg.vocab_size, int(rng.integers(lo, hi + 1))
+                            ).astype(np.int32)
+
+    # scripted drift (tests/serving_harness.py's shape at full size): a
+    # bucket-128 prompt every 4 ticks (8 new tokens), then two bucket-2,048
+    # prompts a tick (16 new tokens)
+    script = ([[(prompt(*REPLAN_SHORT), 8)] if t % 4 == 0 else []
+               for t in range(REPLAN_SHORT_TICKS)]
+              + [[(prompt(*REPLAN_LONG), SERVE_NEW_TOKENS)
+                  for _ in range(2)] for _ in range(REPLAN_LONG_TICKS)])
+    engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                         seed=0)
+    memory("at the start")
+    offloader = make_offloader(reps=2, strategy="staged")
+    pins = {"attn_core": "hopper", "rglru_scan": "hopper"}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_fn = make_replan_fn(HYBRID_ARCH, offloader,
+                                 PlanCache(Path(tmp) / "plans.json"),
+                                 device=dev)
+        searched = {}
+        timeline: dict = {}
+
+        def mark(what):
+            timeline[what] = (time.perf_counter(), engine.ticks)
+
+        def timed(what, fn):
+            def call(*args, **kwargs):
+                mark(what + " start")
+                out = fn(*args, **kwargs)
+                mark(what + " end")
+                return out
+            return call
+
+        engine.prepare_plan = timed("prepare_plan", engine.prepare_plan)
+        engine.canary_check = timed("canary", engine.canary_check)
+
+        def plan_and_pin(conditions):
+            """The production plan_fn; the phase needs the swapped-in
+            generation to run flash_attention and rglru_scan, so their
+            hopper genes are pinned where the search chose otherwise."""
+            mark("search start")
+            rep = plan_fn(conditions)
+            mark("search end")
+            searched["report"] = rep
+            searched["pinned"] = {r: v for r, v in pins.items()
+                                  if rep.best_pattern.get(r) != v}
+            rep.best_pattern = {**rep.best_pattern, **pins}
+            return rep
+
+        detector = DriftDetector(DriftConfig(
+            window=8, bucket_l1=0.5, occupancy_delta=2.0, ratio_rel=100.0,
+            hysteresis=2, cooldown=4))
+        replanner = Replanner(plan_and_pin, config=ReplanConfig(
+            on_drift=True, window=8), detector=detector,
+            quarantine=offloader.quarantine)
+        engine.attach_replanner(replanner)
+        submitted: list = []            # (tick, prompt, max_new)
+        tick_s: list = []
+        busy: list = []                 # the tick admitted or decoded
+        admitted: list = []             # requests the tick admitted
+        decoded: list = []
+        swap_counts = None
+
+        def tick(reqs=()):
+            nonlocal swap_counts
+            for p, new in reqs:
+                engine.submit(p, max_new_tokens=new)
+                submitted.append((engine.ticks, p, new))
+            t0 = time.perf_counter()
+            swapped = engine.swaps
+            engine.step()
+            tick_s.append(time.perf_counter() - t0)
+            if not engine.swaps:
+                memory("before the swap tick")
+            elif not swapped:
+                memory("after the swap tick")
+            ev = engine.stats(window=1)
+            decoded.append(ev["decode_tokens"])
+            admitted.append(ev["requests_admitted"])
+            busy.append(bool(ev["decode_tokens"] or ev["requests_admitted"]))
+            if engine.swaps and swap_counts is None:
+                swap_counts = {c.__name__: c.launches for c in counters}
+
+        for reqs in script:
+            tick(reqs)
+        # long-prompt traffic goes on (a short backlog, at most
+        # REPLAN_MAX_EXTRA requests) until the swap has landed; an idle
+        # engine ticks every 10 ms, as a server waiting for requests would
+        extra, t_wait = 0, time.perf_counter()
+        while (not engine.swaps
+               and time.perf_counter() - t_wait < REPLAN_MAX_WAIT_S):
+            if len(engine.queue) < 2 and extra < REPLAN_MAX_EXTRA:
+                tick([(prompt(*REPLAN_LONG), SERVE_NEW_TOKENS)
+                      for _ in range(2)])
+                extra += 2
+            elif engine.busy:
+                tick()
+            else:
+                tick()
+                time.sleep(0.01)
+        print(f"replan timeline (s into the phase, engine tick): "
+              + ", ".join(f"{k} {t - t13:.1f} ({n})"
+                          for k, (t, n) in timeline.items()))
+        if not engine.swaps:
+            worker = replanner._thread
+            frame = (sys._current_frames().get(worker.ident)
+                     if worker is not None else None)
+            print("replanner thread stack:\n" + ("".join(
+                traceback.format_stack(frame)) if frame else "none"))
+            raise AssertionError(f"replan: no swap after {extra} extra ticks "
+                                 f"(replanner {replanner.stats()}, error "
+                                 f"{replanner.last_error!r})")
+        # one swap is the phase: the replanner takes no further trigger (an
+        # idle engine's empty bucket mix would read as drift)
+        replanner.close(600)
+        # a post-swap batch of both buckets, then drain
+        tick([(prompt(*REPLAN_LONG), SERVE_NEW_TOKENS),
+              (prompt(*REPLAN_SHORT), 8)])
+        while engine.busy:
+            tick()
+        rep13 = searched["report"]
+        print(rep13.summary())
+        print(f"search conditions {replanner.last_conditions}; pinned "
+              f"{searched['pinned'] or 'nothing'}; replanner "
+              f"{replanner.stats()}; canary: {replanner.last_canary_reason}; "
+              f"error {replanner.last_error!r}")
+    if replanner.last_error is not None:
+        raise AssertionError(f"replan: {replanner.last_error!r}")
+    after = {c.__name__: c.launches - swap_counts[c.__name__]
+             for c in counters}
+    swap_tick = engine.swap_ticks[0]
+    med = statistics.median(t for t, b in zip(tick_s, busy) if b)
+    # a tick's time is mostly its prefills: hold the swap tick against the
+    # ticks that admitted as many requests
+    alike = [t for t, b, a in zip(tick_s, busy, admitted)
+             if b and a == admitted[swap_tick - 1]]
+    med_alike = statistics.median(alike)
+    pre = sum(decoded[:swap_tick - 1]) / max(sum(tick_s[:swap_tick - 1]),
+                                             1e-9)
+    post = sum(decoded[swap_tick - 1:]) / max(sum(tick_s[swap_tick - 1:]),
+                                              1e-9)
+    st = engine.stats()
+    print(f"replan: drift fired {detector.fired}x; swap landed before tick "
+          f"{swap_tick} of {engine.ticks} ({'a busy' if busy[swap_tick - 1] else 'an idle'}"
+          f" tick admitting {admitted[swap_tick - 1]} request(s)): swap tick "
+          f"{tick_s[swap_tick - 1] * 1e3:.1f} ms against a median of "
+          f"{med_alike * 1e3:.1f} ms over the {len(alike)} ticks admitting as "
+          f"many, and a median busy tick of {med * 1e3:.1f} ms (host clock, "
+          f"{sum(busy)} busy of {len(tick_s)} ticks); {len(submitted)} "
+          f"requests; decode {pre:.1f} tok/s before the swap, "
+          f"{post:.1f} after; serving {engine.plan_impl.describe()}; launches "
+          f"after the swap {after}; prefill captures {engine.prefill_traces}")
+    if after["flash_attention"] <= 0 or after["rglru_scan"] <= 0:
+        raise AssertionError(f"replan: the swapped-in generation launched "
+                             f"{after}")
+    done = engine.drain_finished()
+    if (len(done) != len(submitted)
+            or any(len(r.generated) != r.max_new_tokens for r in done)):
+        raise AssertionError(f"replan: {len(done)} of {len(submitted)} "
+                             "requests finished in full")
+    # no fault of the searched plan rolled back to the plain one
+    if st["rollbacks"] or st["degraded"]:
+        raise AssertionError(f"replan: rolled back before the NaN segment "
+                             f"({st['rollbacks']}, degraded {st['degraded']})"
+                             f": {st['last_fault']}")
+    memory("after the replanned traffic", release=True)
+
+    # the device-side NaN fault: captured clean, armed, offered, rolled back
+    fault = DeviceNaN("mlp_core", base=engine.plan_impl.pick("mlp_core"),
+                      name="nan")
+    try:
+        good_key = engine.plan_key
+        bad = engine.prepare_plan({**engine.plan_impl, "mlp_core": "nan"})
+        memory("with the NaN generation captured", release=True)
+        fault.arm()
+        engine.offer_plan(bad)
+        post_fault = [(prompt(*REPLAN_SHORT), 8),
+                      (prompt(*REPLAN_LONG), SERVE_NEW_TOKENS),
+                      (prompt(*REPLAN_SHORT), 8)]
+        for p, new in post_fault:
+            engine.submit(p, max_new_tokens=new)
+        engine.run_to_completion()
+    finally:
+        fault.close()
+    st = engine.stats()
+    fault_done = engine.drain_finished()
+    del bad                     # the faulted generation left the trace memo
+    memory("after the rollback", release=True)
+    print("phase 13 memory allocated / peak / reserved: " + "; ".join(
+        f"{k} {a:.3f} / {m:.3f} / {r:.3f} GiB"
+        for k, (a, m, r) in mem13.items()))
+    if (mem13["after the rollback"][2]
+            > mem13["after the replanned traffic"][2] + 0.05):
+        raise AssertionError("replan: the faulted generation's graphs were "
+                             "not freed")
+    print(f"NaN generation: rollbacks {st['rollbacks']}, degraded "
+          f"{st['degraded']}, last fault {st['last_fault']!r}; "
+          f"{len(fault_done)} of {len(post_fault)} requests finished; "
+          f"strikes {offloader.quarantine.strikes()}")
+    if (st["rollbacks"] != 1 or not st["degraded"]
+            or engine.plan_key != good_key or len(fault_done) != len(post_fault)
+            or any(len(r.generated) != r.max_new_tokens for r in fault_done)):
+        raise AssertionError(f"replan: the NaN generation was not rolled back "
+                             f"cleanly: {st}")
+
+    # the never-swapped twins: the old plan and the new one, fed the same
+    # submissions tick for tick; a request's stream must equal the twin's
+    # of the plan it was prefilled under (the decode steps of the two plans
+    # run the same arithmetic: the canary held them bit for bit)
+    if "bit-equal" not in (replanner.last_canary_reason or ""):
+        raise AssertionError(f"replan: the canary did not find the same "
+                             f"decode arithmetic: {replanner.last_canary_reason}")
+    twin_streams = {}
+    for label, timpl in (("old", None), ("new", engine.plan_impl)):
+        twin = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                           seed=0, impl=timpl)
+        i = 0
+        for t in range(max(s[0] for s in submitted) + 1):
+            while i < len(submitted) and submitted[i][0] == t:
+                twin.submit(submitted[i][1], max_new_tokens=submitted[i][2])
+                i += 1
+            twin.step()
+        for p, new in post_fault:
+            twin.submit(p, max_new_tokens=new)
+        twin_streams[label] = [r.generated for r in twin.run_to_completion()]
+        del twin
+        gc.collect()
+    got = done + fault_done
+    mismatched = [r.rid for r in got
+                  if r.generated != twin_streams[
+                      "old" if r.plan_generation == 0 else "new"][r.rid]]
+    print(f"streams: {len(got)} requests ({sum(r.plan_generation == 0 for r in got)}"
+          f" prefilled before the swap) against the never-swapped twins: "
+          f"{len(got) - len(mismatched)} equal")
+    if mismatched:
+        raise AssertionError(f"replan: streams of requests {mismatched} differ "
+                             "from the never-swapped twins'")
+    replan_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 13: {replan_launches}; phase wall "
+          f"{time.perf_counter() - t13:.1f} s")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")

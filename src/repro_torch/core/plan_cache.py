@@ -113,14 +113,34 @@ def plan_cache_key(program, config, backend: str) -> str:
     device the measurements run on.  The registered variant set per region
     is part of the key so that adding a new offload destination (a new
     variant) re-opens the search.
+
+    Regime conditions (``program.plan_extra``, e.g. the serving regime an
+    online replan targets) key the *plan* but never the *measurements*: a
+    new regime re-opens the search while ``measurement_cache_key`` stays
+    unchanged, so the re-opened search is ledger-primed by every sibling
+    regime's entries.  An empty ``plan_extra`` contributes nothing.
     """
-    # measurement-repetition knobs (reps/warmup) and the outlier/quarantine
-    # policy change timing noise or failure handling, never which pattern
-    # is best: keying on them would make callers miss each other's plans
-    _non_key = ("reps", "warmup", "outlier_mad", "remeasure",
-                "quarantine_threshold")
+    # measurement-repetition knobs (reps/warmup) change timing noise, and the
+    # fault-tolerance knobs (timeouts, retries, outlier rejection, quarantine
+    # threshold) how the environment's failures are survived — never which
+    # pattern is best: keying on them would make callers miss each other's
+    # plans
+    _non_key = ("reps", "warmup", "compile_timeout_s", "run_timeout_s",
+                "max_retries", "retry_backoff_s", "outlier_mad",
+                "remeasure", "quarantine_threshold")
     cfg_fields = {k: v for k, v in dataclasses.asdict(config).items()
                   if k not in _non_key}
+    # the RNG seed and GA knobs cannot influence a staged or exhaustive
+    # trajectory; genetic, surrogate and auto (which may resolve to the
+    # surrogate GA) keep them
+    if cfg_fields.get("strategy", "staged") in ("staged", "exhaustive"):
+        cfg_fields = {k: v for k, v in cfg_fields.items()
+                      if k != "seed" and not k.startswith("ga_")}
+    # verify_workers keeps pipelined and serial plans apart, as in JAX; the
+    # serial default contributes nothing, so keys of plans made before the
+    # executor existed (all serial) stay as they were
+    if cfg_fields.get("verify_workers", 1) == 1:
+        cfg_fields.pop("verify_workers", None)
     # tune_tiles=False searches the variant-only space: the field is dropped.
     # When on, the key additionally carries each variant's declared
     # TuningSpace signature — widening a space re-opens the plan.
@@ -155,6 +175,11 @@ def plan_cache_key(program, config, backend: str) -> str:
         ],
         **_conditions(program),
     }
+    # regime conditions key the plan only when present
+    plan_extra = getattr(program, "plan_extra", None)
+    if plan_extra:
+        payload["plan_conditions"] = sorted(
+            (k, repr(v)) for k, v in plan_extra.items())
     blob = json.dumps(payload, sort_keys=True, default=repr)
     digest = hashlib.sha256(blob.encode()).hexdigest()[:20]
     return f"{program.name}:{backend}:{digest}"
@@ -302,6 +327,25 @@ class PlanCache:
                     "last_error": str(rec.get("last_error", "")),
                 }
         return [merged[g] for g in sorted(merged)]
+
+    def cost_model_for(self, measurement_key: str) -> dict:
+        """The newest persisted ``CostModel.export_state`` snapshot taken
+        under the same measurement conditions, or ``{}``: a re-opened
+        search's surrogate starts where the previous run's calibration
+        ended."""
+        if not measurement_key:
+            return {}
+        state: dict = {}
+        entries = sorted(
+            (e for e in self._data["entries"].values() if isinstance(e, dict)),
+            key=lambda e: str(e.get("created_at", "")))
+        for entry in entries:
+            if entry.get("measurement_key") != measurement_key:
+                continue
+            cm = entry.get("cost_model")
+            if isinstance(cm, dict) and cm:
+                state = dict(cm)
+        return state
 
     def invalidate(self, key: str) -> bool:
         existed = self._data["entries"].pop(key, None) is not None

@@ -20,10 +20,14 @@ extended to mixed offload destinations (Yamato, arXiv 2011.12431).
                                  pre-existing reference and costs nothing)
   Step 5  select               — fastest measured pattern
 
-Measurement is serial, on the program's device (``program.device``).  The
-JAX package's concurrent verification executor, cost model and fault policy
-(timeouts, retries) come with slice 3 of the port; the config fields only
-they read are left out here.
+Step 4 verifies through the ``VerificationExecutor`` (core/executor.py):
+each pattern's host-only compile step (the ``nvcc`` builds its ``hopper``
+genes need, then ``program.build``) may run concurrently on a worker pool,
+while every first call and timed rep runs serially on the program's device
+(``program.device``) under the ``FaultPolicy`` (timeouts, bounded retry,
+finite check, MAD rejection).  The surrogate strategy scores patterns with
+the roofline ``CostModel`` (core/cost_model.py), primed from the plan
+cache's persisted calibration.
 
 Plans are cacheable: ``plan(..., cache=...)`` consults/updates a persistent
 ``PlanCache`` keyed by program name + abstract arg shapes/dtypes + variant
@@ -33,10 +37,15 @@ Defaults a=5, c=3, d=4 match the paper's evaluation conditions (§5.1.2).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 from repro_torch.core import search
+from repro_torch.core.cost_model import CostModel
 from repro_torch.core.device import backend_name
+from repro_torch.core.executor import (CompileCache, FaultPolicy,
+                                       VerificationExecutor, VerifyJob,
+                                       compile_key, measure_with_retry)
 from repro_torch.core.intensity import RegionAnalysis, analyze_region, count_loops
 from repro_torch.core.plan_cache import (PlanCache, measurement_cache_key,
                                          plan_cache_key, resolve_cache)
@@ -50,10 +59,15 @@ from repro_torch.core.strategies import SearchCandidate, SearchState, make_strat
 
 @dataclass(frozen=True)
 class PlannerConfig:
-    """Every knob of the automatic offload planner.
+    """Every knob of the automatic offload planner (the JAX package's, less
+    its Pallas unroll knob ``unroll_b``).
 
-    All fields except ``reps``/``warmup``/``outlier_mad``/``remeasure``/
-    ``quarantine_threshold`` participate in the plan-cache key.
+    All fields except ``reps``/``warmup`` and the fault-tolerance knobs
+    participate in the plan-cache key; ``seed`` and the ``ga_*`` knobs
+    participate only for strategies that read them (``genetic``,
+    ``surrogate``, ``auto``).
+
+    Pipeline budgets (paper §5.1.2 defaults):
 
     * ``top_a`` (5) — Step-2 arithmetic-intensity filter width.
     * ``top_c`` (3) — Step-3 resource-efficiency filter width.
@@ -62,15 +76,40 @@ class PlannerConfig:
     * ``resource_cap`` (1.0) — summed on-chip-memory fraction a combined
       pattern may claim; over-cap patterns are never built.
     * ``tune_tiles`` (False) — widen the genome to ``(variant, tile
-      params)`` for variants that declared a ``TuningSpace``: staged adds a
-      round-4 hill climb, exhaustive enumerates every valid point.
-    * ``warmup`` (1) / ``reps`` (5) — timing runs per pattern;
-      ``run_seconds`` is the median of the kept reps.
+      params)`` for variants that declared a ``TuningSpace``.
+
+    Measurement fidelity (not in the key): ``warmup`` (1) / ``reps`` (5).
+
+    Fault tolerance (not in the key — they govern how the environment's
+    failures are survived, never which pattern is best):
+
+    * ``compile_timeout_s`` (0.0) — wall ceiling per compile step; 0 = off.
+    * ``run_timeout_s`` (0.0) — wall ceiling per call (first, warm-up, each
+      timed rep); 0 = off.  After an expiry the device is drained.
+    * ``max_retries`` (2) / ``retry_backoff_s`` (0.05) — bounded retry with
+      exponential backoff for transient failures.
     * ``outlier_mad`` (3.5) / ``remeasure`` (2) — MAD outlier rejection
       over the timed reps (0 disables).
-    * ``quarantine_threshold`` (2) — failures that quarantine a gene.
-    * ``strategy`` ("staged") — staged | exhaustive | auto; genetic and
-      surrogate raise ``NotImplementedError`` until slice 3 of the port.
+    * ``quarantine_threshold`` (2) — permanent failures that quarantine a
+      gene; strikes persist in the plan cache under ``measurement_key``.
+
+    Step-4 search strategy (core/strategies.py):
+
+    * ``strategy`` ("staged") — staged | genetic | surrogate | exhaustive |
+      auto.
+    * ``seed`` (0) — strategy RNG seed (GA determinism).
+    * ``ga_population`` (6), ``ga_generations`` (4), ``ga_crossover``
+      (0.9), ``ga_mutation`` (0.15), ``ga_tournament`` (2), ``ga_elite``
+      (1) — the GA; ``ga_topk`` (2) — surrogate only: real measurements per
+      generation.
+
+    Verification executor (core/executor.py):
+
+    * ``verify_workers`` (1) — thread-pool width for the concurrent compile
+      steps of Steps 3 and 4 (timed reps stay serial at any width; the
+      measured sequence and the selected pattern are the same for every
+      value).  In the key, so pipelined and serial plans stay
+      distinguishable.
     """
     top_a: int = 5              # AI filter width (paper: 5)
     top_c: int = 3              # resource-efficiency filter width (paper: 3)
@@ -80,10 +119,55 @@ class PlannerConfig:
 
     warmup: int = 1
     reps: int = 5
+    # ---- fault tolerance (core/executor.py FaultPolicy; not in the key) ----
+    compile_timeout_s: float = 0.0   # per-compile watchdog wall (0 = off)
+    run_timeout_s: float = 0.0       # per-call watchdog wall (0 = off)
+    max_retries: int = 2             # bounded retries for transient failures
+    retry_backoff_s: float = 0.05    # exponential-backoff base between tries
     outlier_mad: float = 3.5         # modified-z rep rejection (0 = off)
     remeasure: int = 2               # replacement reps after rejection
     quarantine_threshold: int = 2    # permanent-failure strikes per gene
-    strategy: str = "staged"         # staged | exhaustive | auto
+    # ---- Step-4 search strategy (core/strategies.py) ----
+    strategy: str = "staged"    # staged | genetic | surrogate | exhaustive | auto
+    seed: int = 0               # strategy RNG seed (GA determinism)
+    ga_population: int = 6      # genomes per generation
+    ga_generations: int = 4     # generations (ledger hits don't spend d)
+    ga_crossover: float = 0.9   # uniform-crossover probability
+    ga_mutation: float = 0.15   # per-gene mutation probability
+    ga_tournament: int = 2      # tournament size
+    ga_elite: int = 1           # elites carried over (re-measured for free)
+    ga_topk: int = 2            # surrogate: real measurements per generation
+    # ---- verification executor (core/executor.py) ----
+    verify_workers: int = 1     # concurrent compile threads (1 = serial)
+
+
+def conditions_from_stats(stats: dict) -> dict:
+    """Fold a ServeEngine windowed stats view (``engine.stats(window=N)``)
+    into discrete measurement conditions for online replanning.
+
+    Deliberately coarse — a plan-cache key ingredient
+    (``OffloadableProgram.plan_extra``), not a telemetry dump: banding keeps
+    neighboring windows of the same regime on the same conditions, while a
+    real regime shift re-opens the search.  Keys:
+
+    * ``dominant_bucket`` — the prefill bucket with the most admissions in
+      the window (ties favor the longer bucket; 0 when nothing admitted),
+    * ``occupancy_band`` — mean slot occupancy in thirds: low / mid / high,
+    * ``decode_prefill_band`` — ``floor(log2(1 + decode/prefill ratio))``.
+
+    Deterministic: equal stats give equal conditions."""
+    hist = {int(b): int(c)
+            for b, c in dict(stats.get("bucket_hist", {})).items()}
+    dominant = (max(hist.items(), key=lambda kv: (kv[1], kv[0]))[0]
+                if hist else 0)
+    occ = float(stats.get("occupancy_mean", 0.0))
+    occupancy_band = "low" if occ < 1 / 3 else ("mid" if occ < 2 / 3 else "high")
+    ratio = max(float(stats.get("decode_prefill_ratio", 0.0)), 0.0)
+    return {
+        "dominant_bucket": dominant,
+        "occupancy_band": occupancy_band,
+        "decode_prefill_band": int(math.floor(math.log2(1.0 + ratio))),
+    }
 
 
 def _efficiency(analysis: RegionAnalysis,
@@ -147,6 +231,16 @@ class PlanReport:
     # size of the Step-3 survivor genome space
     reused: list[Measurement] = field(default_factory=list)
     search_space: int = 0
+    # verification-executor wall-clock accounting: verify_wall_s is the
+    # wall of the batched Step-4 verification phases (compile + timed reps),
+    # compile_wall_s the part the serial pipeline was BLOCKED on compiles —
+    # with workers > 1 it shrinks toward the longest compile per batch
+    verify_workers: int = 1
+    verify_wall_s: float = 0.0
+    compile_wall_s: float = 0.0
+    # the search's final CostModel calibration (export_state), persisted
+    # next to the measurements so re-opened searches start calibrated
+    cost_model_state: dict = field(default_factory=dict)
     quarantined: list[str] = field(default_factory=list)
     quarantine_records: list[dict] = field(default_factory=list)
 
@@ -175,10 +269,14 @@ class PlanReport:
                 + (f" best_variant={c.best_variant}" if c.best_variant else ""))
         if self.baseline:
             lines.append(f"baseline (all-ref): {self.baseline.run_seconds*1e3:.3f} ms"
-                         f"  (first call {self.baseline.compile_seconds*1e3:.0f} ms)")
+                         f"  (first call {self.baseline.first_run_seconds*1e3:.0f} ms)")
         for m in self.measurements:
             lines.append(f"  pattern[{m.pattern}]: {m.run_seconds*1e3:.3f} ms"
-                         f"  (first call {m.compile_seconds*1e3:.0f} ms)"
+                         f"  (compile {m.compile_seconds*1e3:.0f} ms, first "
+                         f"call {m.first_run_seconds*1e3:.0f} ms)"
+                         + (f"  [{m.attempts} attempts]" if m.attempts > 1 else "")
+                         + ("  [device drained after a timeout]"
+                            if m.drained else "")
                          + ("" if m.ok else f"  FAILED [{m.failure_kind or '?'}]"
                             f" {m.error}"))
         if self.quarantined:
@@ -187,9 +285,33 @@ class PlanReport:
             lines.append(f"  pattern[{m.pattern}]: {m.run_seconds*1e3:.3f} ms"
                          f"  [reused from plan cache, zero budget]")
         for t in self.search_trace:
+            if "pairs" in t:          # cost-model pair-bias notes
+                lines.append(f"  {t.get('stage', '?')}: " + "; ".join(
+                    f"{'+'.join('='.join(g) for g in p['pair'])} "
+                    f"{p['sign']} x{p['observations']} "
+                    f"(mean {p['mean_rel_residual']:+.1%})"
+                    for p in t["pairs"]))
+                continue
+            if "workers" in t:        # verification-executor accounting
+                lines.append(
+                    f"  {t.get('stage', '?')}: workers={t['workers']} "
+                    f"batches={t.get('batches', 0)} "
+                    f"compile_wall={t.get('compile_wall_s', 0.0)*1e3:.0f} ms "
+                    f"(of {t.get('compile_seconds_total', 0.0)*1e3:.0f} ms "
+                    f"compiled) verify_wall="
+                    f"{t.get('verify_wall_s', 0.0)*1e3:.0f} ms "
+                    f"cache_hits={t.get('compile_cache_hits', 0)}"
+                    + (f" drained={t['drained']}" if t.get("drained") else ""))
+                continue
+            # the trace line adds the stage grouping and the proposal count
+            # (which includes free ledger hits, e.g. GA elites)
             n = len(t.get("patterns", []))
-            lines.append(f"  {t.get('stage', '?')}: "
-                         f"{n} proposal{'s' if n != 1 else ''}")
+            line = (f"  {t.get('stage', '?')}: "
+                    f"{n} proposal{'s' if n != 1 else ''}")
+            if t.get("model_error") is not None:
+                line += (f"  (surrogate error "
+                         f"{t['model_error'] * 100:.1f}%)")
+            lines.append(line)
         lines.append(f"best: {self.best_pattern}  speedup={self.speedup:.2f}x")
         return "\n".join(lines)
 
@@ -198,8 +320,13 @@ class AutoOffloader:
     def __init__(self, config: PlannerConfig = PlannerConfig(),
                  quarantine: search.Quarantine | None = None):
         self.config = config
-        # offloader-lifetime strike list; per-plan-run records persisted in
-        # the cache merge into it on each plan()
+        # offloader-lifetime compile memo: a pattern built once for a
+        # (program, shapes) pair is never built again by this instance
+        self.compile_cache = CompileCache()
+        # offloader-lifetime strike list.  An external instance may be
+        # shared with a serving-side Replanner so a plan that faulted
+        # mid-serve is filtered from every later search; per-plan-run
+        # records persisted in the cache merge into it on each plan()
         self.quarantine = (quarantine if quarantine is not None
                            else search.Quarantine(
                                threshold=config.quarantine_threshold))
@@ -211,6 +338,9 @@ class AutoOffloader:
         Step-4 search strategy, or serve the plan from ``cache``.
 
         ``seed`` draws the sample inputs (it does NOT enter the cache key).
+        Every pattern is timed on a stream of its own with CUDA events, so
+        a plan may run while the device serves other work (a serving
+        engine ticking on another thread, as under the online replanner).
         ``cache`` is a ``PlanCache``, a path, or None (no caching):
 
         * **hit** — an entry matches the full plan key: the stored plan is
@@ -274,10 +404,33 @@ class AutoOffloader:
         report.ai_selected = ai_set
 
         # ---- Step 3: resource filter over (region, variant) pairs -----
+        # the meta runs of every (region, variant) pair fan out on the
+        # verification executor (order-preserving: the ranking is the same
+        # at any worker count)
+        policy = FaultPolicy(compile_timeout_s=cfg.compile_timeout_s,
+                             run_timeout_s=cfg.run_timeout_s,
+                             max_retries=cfg.max_retries,
+                             retry_backoff_s=cfg.retry_backoff_s,
+                             outlier_mad=cfg.outlier_mad,
+                             remeasure=cfg.remeasure)
+        executor = VerificationExecutor(workers=cfg.verify_workers,
+                                        cache=self.compile_cache,
+                                        policy=policy)
         quarantine = self.quarantine
         mkey = measurement_cache_key(program, backend) if store is not None else ""
         if store is not None:
             quarantine.load_records(store.quarantine_for(mkey))
+        try:
+            return self._search(program, cfg, report, cands, ai_set, sample,
+                                full_ref, executor, policy, quarantine,
+                                store, mkey)
+        finally:
+            # idempotent; guards the pool and the offloader-lifetime
+            # CompileCache against any exception from Step 3 onward
+            executor.shutdown()
+
+    def _search(self, program, cfg, report, cands, ai_set, sample, full_ref,
+                executor, policy, quarantine, store, mkey) -> PlanReport:
         region_map = {r.name: r for r in program.regions}
         jobs, meta = [], []
         for c in cands:
@@ -289,7 +442,8 @@ class AutoOffloader:
                              r.static_kwargs))
                 meta.append((c, var))
         pairs: list[VariantCandidate] = []
-        for (c, var), est in zip(meta, precompile_many(jobs)):
+        for (c, var), est in zip(meta, precompile_many(
+                jobs, mapper=executor.map_concurrent)):
             c.variant_estimates[var] = est
             pairs.append(VariantCandidate(c.region, var, c.analysis, est))
         eligible = [p for p in pairs if p.resources.lower_ok
@@ -325,27 +479,54 @@ class AutoOffloader:
                 c.resources = next(iter(c.variant_estimates.values()))
 
         # ---- Step 4: measured pattern search ---------------------------
-        def timed(impl: Impl, fn) -> Measurement:
-            return search.time_callable(
-                fn, sample, warmup=cfg.warmup, reps=cfg.reps,
-                pattern=impl.describe(), impl=dict(impl), check_finite=True,
-                outlier_mad=cfg.outlier_mad, remeasure=cfg.remeasure)
+        # the all-ref baseline goes through the same fault policy as every
+        # candidate: an unlucky hiccup must not void the whole search
+        report.baseline = measure_with_retry(
+            lambda: (search.time_callable(
+                full_ref, sample, warmup=cfg.warmup, reps=cfg.reps,
+                pattern="all-ref", impl=Impl(),
+                run_timeout_s=policy.run_timeout_s,
+                check_finite=policy.check_finite,
+                outlier_mad=policy.outlier_mad,
+                remeasure=policy.remeasure), True),
+            policy)
 
-        report.baseline = timed(Impl(), full_ref)
+        # on the CPU a hopper wrapper runs its kernel's plain version: there
+        # is nothing to build
+        on_card = program.device.type == "cuda"
+
+        def job(impl) -> VerifyJob:
+            impl = Impl(impl)
+            return VerifyJob(key=compile_key(program.name, impl, sample),
+                             build=lambda: program.build(impl), args=sample,
+                             pattern=impl.describe(), impl=dict(impl),
+                             sources=(search.pattern_sources(impl)
+                                      if on_card else ()))
+
         ledger = MeasurementLedger(
-            lambda impl: timed(Impl(impl), program.build(Impl(impl))),
-            budget=cfg.max_measurements, quarantine=quarantine)
+            lambda impl: executor.measure_one(job(impl), warmup=cfg.warmup,
+                                              reps=cfg.reps),
+            budget=cfg.max_measurements,
+            measure_batch_fn=lambda impls: executor.measure_batch(
+                [job(i) for i in impls], warmup=cfg.warmup, reps=cfg.reps),
+            prefetch_fn=lambda impls: executor.prefetch(
+                [job(i) for i in impls]),
+            quarantine=quarantine)
         # cross-run reuse: sibling cache entries measured under the same
         # conditions donate their per-pattern measurements
+        primed: list[Measurement] = []
         if store is not None:
             for m in store.measurements_for(mkey):
                 impl = Impl(m.get("impl", {}))
-                ledger.prime(impl, Measurement(
+                pm = Measurement(
                     pattern=str(m.get("pattern", impl.describe())),
                     compile_seconds=float(m.get("compile_seconds", 0.0)),
                     run_seconds=float(m.get("run_seconds", float("inf"))),
                     runs=[], ok=bool(m.get("ok", False)),
-                    error=str(m.get("error", "")), impl=dict(impl)))
+                    error=str(m.get("error", "")), impl=dict(impl),
+                    first_run_seconds=float(m.get("first_run_seconds", 0.0)))
+                ledger.prime(impl, pm)
+                primed.append(pm)
         # the all-ref baseline pre-exists (the paper's running CPU system);
         # primed AFTER the cache donations so this run's fresh baseline wins
         ledger.prime(Impl(), report.baseline)
@@ -363,11 +544,34 @@ class AutoOffloader:
             regions=eff_regions,
             ranked=[SearchCandidate(p.region, p.variant,
                                     p.resources.resource_fraction,
-                                    p.efficiency, tuning=bound_tuning(p))
+                                    p.efficiency,
+                                    flops=p.analysis.flops,
+                                    transcendentals=p.analysis.transcendentals,
+                                    boundary_bytes=p.analysis.boundary_bytes,
+                                    alignment=p.analysis.alignment,
+                                    tuning=bound_tuning(p))
                     for p in ranked if p.region in eff_regions],
             resource_cap=cfg.resource_cap,
+            seed=cfg.seed,
             baseline=report.baseline,
             quarantine=quarantine)
+        # the roofline surrogate, seeded from the Step-3 estimates, restored
+        # from persisted calibration, then calibrated on what is already
+        # measured: the fresh baseline (exact re-base), then the primed
+        # cross-run measurements — single-gene patterns first, so their
+        # deltas are pinned before combined patterns split their residuals
+        model = CostModel(candidates=state.ranked,
+                          baseline_seconds=report.baseline.run_seconds
+                          if report.baseline.ok else 0.0)
+        if store is not None:
+            model.load_state(store.cost_model_for(mkey))
+        if report.baseline.ok:
+            model.observe(Impl(), report.baseline.run_seconds)
+        for m in sorted((p for p in primed if p.ok and p.mapping()),
+                        key=lambda m: (len(m.mapping()), m.pattern)):
+            model.observe(Impl(m.mapping()), m.run_seconds)
+        state.cost_model = model
+
         # |non-ref genome space| of the survivors (make_strategy("auto"))
         space = 1
         for r in eff_regions:
@@ -376,6 +580,7 @@ class AutoOffloader:
         report.search_space = max(space - 1, 0)
         strategy = make_strategy(cfg, space_size=report.search_space)
         strategy.run(state, ledger)
+        executor.shutdown()     # sync final cache stats before reading them
         report.measurements = ledger.order       # budget-consuming, in order
         report.reused = [m for m in ledger.reused() if m.mapping()]
         report.quarantined = quarantine.blocked()
@@ -383,6 +588,17 @@ class AutoOffloader:
         report.strategy = strategy.name
         report.search_trace = state.trace
         report.skipped_combinations = state.skipped
+        report.cost_model_state = model.export_state()
+        bias = model.bias_notes()
+        if bias:
+            report.search_trace.append(
+                {"stage": "cost-model pair bias", "pairs": bias})
+        stats = executor.stats.as_dict()
+        report.search_trace.append({"stage": "verification executor",
+                                    **stats})
+        report.verify_workers = cfg.verify_workers
+        report.verify_wall_s = stats["verify_wall_s"]
+        report.compile_wall_s = stats["compile_wall_s"]
 
         # ---- Step 5: select -------------------------------------------
         # over everything the strategy was served this run: fresh
@@ -420,6 +636,7 @@ class AutoOffloader:
             from_cache=True,
             cache_key=ckey,
             strategy=str(entry.get("strategy", "staged")),
+            verify_workers=int(entry.get("verify_workers", 1)),
         )
         report.baseline = Measurement(
             "all-ref", 0.0, float(entry.get("baseline_seconds", 0.0)), [],
@@ -437,6 +654,7 @@ class AutoOffloader:
             {"pattern": m.pattern, "impl": m.mapping(),
              "run_seconds": m.run_seconds,
              "compile_seconds": m.compile_seconds,
+             "first_run_seconds": m.first_run_seconds,
              "ok": m.ok, "error": m.error}
             for m in list(report.measurements) + list(report.reused)
             if m.ok and m.mapping()
@@ -445,6 +663,9 @@ class AutoOffloader:
             "measurement_key": measurement_cache_key(program, backend),
             "measurements": persisted,
             "quarantine": list(report.quarantine_records),
+            # the calibrated surrogate, keyed with the measurements it was
+            # learned from (PlanCache.cost_model_for)
+            "cost_model": dict(report.cost_model_state),
             "program": report.program,
             "backend": backend,
             "best_pattern": dict(report.best_pattern),
@@ -455,4 +676,8 @@ class AutoOffloader:
             "strategy": report.strategy,
             "loop_count": report.loop_count,
             "measured_patterns": [m.pattern for m in report.measurements],
+            # provenance of the verification pipeline that produced the plan
+            "verify_workers": report.verify_workers,
+            "verify_wall_s": report.verify_wall_s,
+            "compile_wall_s": report.compile_wall_s,
         }

@@ -56,6 +56,12 @@ class OffloadableProgram:
     # batch/seq the sample runs at): anything that changes Step-4 timings
     # but not the regions' analysis args
     cache_extra: dict = field(default_factory=dict)
+    # plan-key-ONLY conditions (the serving regime an online replan targets
+    # — core.planner.conditions_from_stats).  Unlike cache_extra they do
+    # NOT enter measurement_cache_key: a regime shift re-opens the *search*
+    # while measurements taken under the same shapes stay valid, so the
+    # re-opened search primes its ledger from every sibling regime
+    plan_extra: dict = field(default_factory=dict)
 
 
 def meta(shape, dtype) -> torch.Tensor:

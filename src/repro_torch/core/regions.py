@@ -31,11 +31,15 @@ under the same region names in a registry of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 REGISTRY: dict[str, dict[str, Callable]] = {}
+_VERSION = [0]           # bumped by every (un)registration
+_OBSERVED = threading.local()   # .seen: regions dispatched on this thread
 
 # (region, variant) -> TuningSpace for variants that declared tile knobs
 _TUNING: dict[tuple[str, str], "TuningSpace"] = {}
@@ -192,6 +196,7 @@ def register_variant(region: str, variant: str,
         REGISTRY.setdefault(region, {})[variant] = fn
         if tuning is not None:
             _TUNING[(region, variant)] = tuning
+        _VERSION[0] += 1
         return fn
     return deco
 
@@ -205,7 +210,29 @@ def unregister_variant(region: str, variant: str) -> bool:
     if table is not None and not table:
         REGISTRY.pop(region, None)
     _TUNING.pop((region, variant), None)
+    _VERSION[0] += 1
     return existed
+
+
+def registry_version() -> int:
+    """Monotone counter of variant (un)registrations: a compiled pattern is
+    reusable only under the registry it was built from
+    (``core/executor.py::compile_key``)."""
+    return _VERSION[0]
+
+
+@contextlib.contextmanager
+def observe_dispatch():
+    """Collect the regions :func:`dispatch` reaches on THIS thread while
+    the block runs (the serving canary asks which regions a decode step
+    touches).  Yields the set, filled in place."""
+    prev = getattr(_OBSERVED, "seen", None)
+    seen: set = set()
+    _OBSERVED.seen = seen
+    try:
+        yield seen
+    finally:
+        _OBSERVED.seen = prev
 
 
 def tuning_space(region: str, variant: str) -> Optional[TuningSpace]:
@@ -296,6 +323,9 @@ class Impl(dict):
 
 
 def dispatch(region: str, impl: Optional[Impl], *args, **kwargs):
+    seen = getattr(_OBSERVED, "seen", None)
+    if seen is not None:
+        seen.add(region)
     choice, params = impl.gene(region) if impl else ("ref", {})
     table = REGISTRY.get(region)
     if table is None:

@@ -91,9 +91,14 @@ def precompile(region: str, variant: str, fn: Callable, args,
                                 f"{type(e).__name__}: {e}")
 
 
-def precompile_many(jobs) -> list[ResourceEstimate]:
+def precompile_many(jobs, mapper=None) -> list[ResourceEstimate]:
     """Step-3 fan-out over ``(region, variant, fn, args[, params[,
-    static_kwargs]])`` jobs, in job order (serial: the concurrent executor
-    is not ported)."""
-    return list(map(lambda j: precompile(*j), list(jobs)))
+    static_kwargs]])`` jobs, in job order.  ``mapper`` is an
+    order-preserving ``map(fn, items)`` — the verification executor's
+    ``map_concurrent`` runs the meta runs on its worker pool; the default
+    is the serial built-in map."""
+    jobs = list(jobs)
+    if mapper is None:
+        return list(map(lambda j: precompile(*j), jobs))
+    return list(mapper(lambda j: precompile(*j), jobs))
 

@@ -5,21 +5,36 @@ app's sample benchmark.  Here a pattern runs eagerly on the program's
 device; the *structure* (bounded number of measured patterns,
 best-of-measured selection) is identical.
 
-PyTorch has no ahead-of-time compile step to split off, so:
+A pattern's cost is split in two, as the JAX package splits its AOT path:
 
-* ``compile_seconds`` is the wall time of the first, synchronized call —
-  it pays every one-off cost of the pattern: the CUDA kernels' ``nvcc``
-  build and load on first use, allocator warm-up, the first launches;
-* ``run_seconds`` is the median of the timed reps.  On a CUDA device each
-  rep is bracketed by ``torch.cuda.Event(enable_timing=True)`` records after
-  a ``torch.cuda.synchronize()``; on the CPU it is ``time.perf_counter``
-  (monotonic — ``time.time`` can jump under clock adjustments).
+* **compile** (:func:`compile_pattern`) is host-only work: the ``nvcc``
+  builds of the CUDA sources the pattern's ``hopper`` genes launch
+  (``kernels/_build.py``, one per source, skipped when the library is
+  current) and ``program.build(impl)``.  Nothing here touches the device,
+  so a verification executor (``core/executor.py``) runs many compiles
+  concurrently on a thread pool.  ``compile_seconds`` is its wall time.
+* **run** is device work, strictly serial: the first synchronized call
+  (``first_run_seconds``: allocator warm-up, the kernels' module loads, the
+  first launches), ``warmup - 1`` more calls, then ``reps`` timed calls;
+  ``run_seconds`` is the median of the kept reps.  On a CUDA device the
+  pattern runs on a stream of its own, each rep bracketed by
+  ``torch.cuda.Event(enable_timing=True)`` records on that stream; on the
+  CPU it is ``time.perf_counter`` (monotonic — ``time.time`` can jump under
+  clock adjustments).
+
+A rep waits on its own stream only, never on the whole device: on an idle
+card that is the same, and while the device serves other work (the online
+replanner's search runs while the engine ticks) the other thread's work is
+neither waited for nor timed.  It still shares the card's SMs and memory
+bandwidth with that work; what is left is that contention, not the other
+work's duration.
 
 ``MeasurementLedger`` is the in-run analogue of the persistent plan cache:
 search strategies propose offload patterns through it, a pattern re-proposed
 within one plan run is served from the ledger, and only ledger *misses*
-consume the measurement budget ``d``.  Measurement is serial: the
-concurrent verification executor is not ported.
+consume the measurement budget ``d``.  The ledger is thread-safe and speaks
+both single (``measure``) and batched (``measure_batch``) ask–tell, plus a
+free ``prefetch`` hint channel for speculative compile-ahead.
 """
 from __future__ import annotations
 
@@ -33,13 +48,27 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.core.regions import Impl, canonical_gene, gene_variant
+from repro_torch.core.regions import (Impl, canonical_gene, gene_variant,
+                                      split_gene)
+
+# the CUDA source each region's ``hopper`` variant launches
+# (``kernels/csrc/<source>.cu``); a stitched region ``a+b`` needs the
+# sources of its parts
+HOPPER_SOURCES = {
+    "fir_bank": "fir",
+    "compute_q": "mriq",
+    "attn_core": "flash_attention",
+    "decode_attn": "decode_attention",
+    "ssm_scan": "ssm_scan",
+    "rglru_scan": "rglru_scan",
+    "rmsnorm": "rmsnorm",
+}
 
 
 @dataclass
 class Measurement:
     pattern: str
-    compile_seconds: float      # the first, synchronized call
+    compile_seconds: float      # host compile step: nvcc builds + build(impl)
     run_seconds: float          # median of the kept reps
     runs: list[float]
     ok: bool = True
@@ -47,35 +76,108 @@ class Measurement:
     # structured offload pattern {region -> variant}; `pattern` is only its
     # human-readable rendering
     impl: dict | None = None
-    # on failure: the classify_failure() verdict and the phase that died
-    # ("first call" or "run")
+    first_run_seconds: float = 0.0   # the first, synchronized call
+    # wall the (serial) verification pipeline was blocked on this pattern's
+    # compile: compile_seconds when it ran inline, less when a concurrent
+    # executor had it built before the timing phase reached it
+    compile_wall_s: float = 0.0
+    # fault-tolerance provenance: tries spent on the pattern (1 = first try
+    # succeeded; the compile seconds of failed tries are folded into
+    # compile_seconds), and on failure the classify_failure() verdict and
+    # the phase that died ("compile", "first call" or "run")
+    attempts: int = 1
     failure_kind: str = ""
     failure_phase: str = ""
     outliers_rejected: int = 0   # timed reps dropped by MAD rejection
+    # a run timed out: its abandoned thread's launches were drained from
+    # the device before anything else was timed
+    drained: bool = False
 
     def mapping(self) -> dict:
         """The measured {region -> variant} mapping (empty = all-ref)."""
         return dict(self.impl) if self.impl else {}
 
 
+@dataclass
+class CompiledArtifact:
+    """One compile outcome: the built callable (or the failure) and the
+    compile step's wall time.  Produced by :func:`compile_pattern` —
+    possibly on a worker thread — and consumed by
+    ``time_callable(precompiled=...)`` on the serial timing thread."""
+    fn: Callable | None              # the built pattern; None if it failed
+    compile_seconds: float
+    error: str = ""
+
+    @property
+    def ok(self) -> bool:
+        return self.fn is not None
+
+
+def pattern_sources(impl) -> tuple[str, ...]:
+    """The CUDA sources a pattern's ``hopper`` genes launch, sorted."""
+    out = set()
+    for region, gene in dict(impl).items():
+        if split_gene(gene)[0] != "hopper":
+            continue
+        for part in region.split("+"):
+            if part in HOPPER_SOURCES:
+                out.add(HOPPER_SOURCES[part])
+    return tuple(sorted(out))
+
+
+def compile_pattern(build: Callable[[], Callable], sources=(),
+                    timeout_s: float = 0.0) -> CompiledArtifact:
+    """The host-only compile step: load (building when stale) every CUDA
+    source in ``sources``, then ``build()`` the pattern.  Safe to run many
+    at once on a thread pool (``nvcc`` runs in processes of its own; the
+    build module locks per source).  ``timeout_s > 0`` runs it under
+    :func:`watchdog_call`; expiry is a transient ``CompileTimeout``.  Never
+    raises: a failure returns a non-``ok`` artifact that still accounts the
+    seconds spent failing."""
+    if timeout_s and timeout_s > 0:
+        ok, art, err = watchdog_call(compile_pattern, (build, sources),
+                                     timeout_s=timeout_s)
+        return art if ok else CompiledArtifact(None, timeout_s,
+                                               f"CompileTimeout: {err}")
+    t0 = time.perf_counter()
+    try:
+        if sources:
+            from repro_torch.kernels import _build
+            for name in sources:
+                _build.load(name)
+        fn = build()
+        return CompiledArtifact(fn, time.perf_counter() - t0)
+    except Exception as e:  # noqa: BLE001 — a pattern failing = not a solution
+        return CompiledArtifact(None, time.perf_counter() - t0,
+                                f"{type(e).__name__}: {e}")
+
+
 # ---------------------------------------------------------------------------
-# Failure classification and outlier rejection
+# Fault tolerance: watchdog, failure classification, outlier rejection
 # ---------------------------------------------------------------------------
-# Error-message markers that make a failure *transient* — the environment
-# failed, a retry of the same measurement may succeed.  Everything else
-# (shape/type errors, kernel build failures, non-finite outputs) is
-# permanent: repeat offenders are quarantined.
+# Error-message markers that make a failure *transient* — worth a bounded
+# retry with backoff.  Everything else (shape/type errors, kernel build
+# failures, non-finite outputs, injected permanent faults) is permanent: a
+# retry cannot fix it and repeat offenders are quarantined instead.  The
+# JAX package's markers, plus the CUDA allocator's own message.
 TRANSIENT_MARKERS = (
-    "OutOfMemory",               # torch.OutOfMemoryError
-    "out of memory",             # the allocator's and the driver's message
+    "WatchdogTimeout",
+    "CompileTimeout",
+    "RunTimeout",
+    "/transient",                  # InjectedFault[kind/transient]
+    "RESOURCE_EXHAUSTED",
+    "DEADLINE_EXCEEDED",
+    "UNAVAILABLE",
+    "OutOfMemory",                 # torch.OutOfMemoryError
+    "out of memory",               # the allocator's and the driver's message
 )
 
 
 def classify_failure(error: str) -> str:
     """``"transient"`` or ``"permanent"`` for a measurement error string.
 
-    Transient = the environment failed (device memory exhausted, e.g. by
-    another process): retrying the identical measurement may succeed.
+    Transient = the environment failed (timeout, device memory exhausted,
+    a flaky device): retrying the identical measurement may succeed.
     Permanent = the *pattern* failed (it does not run on these arguments,
     its kernel does not build, it produces NaN/Inf): retrying is wasted
     budget, so permanent failures strike the pattern's genes in the
@@ -83,10 +185,37 @@ def classify_failure(error: str) -> str:
     err = str(error or "")
     if not err:
         return "permanent"
-    if "NonFiniteOutput" in err:
+    if "/permanent" in err or "NonFiniteOutput" in err:
         return "permanent"
     return ("transient" if any(m in err for m in TRANSIENT_MARKERS)
             else "permanent")
+
+
+def watchdog_call(fn, args=(), *, timeout_s: float):
+    """Run ``fn(*args)`` under a wall-clock watchdog.
+
+    Returns ``(ok, value, error)``.  The work runs on a daemon thread
+    joined with ``timeout_s``; on expiry the thread is *abandoned* (Python
+    cannot kill a thread, and nothing can stop a CUDA kernel that is
+    already running — the caller drains the device before it times
+    anything else) and the error is ``WatchdogTimeout`` — classified
+    transient, so the retry loop gets its bounded second chance."""
+    box: dict = {}
+
+    def target():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — reported to the caller
+            box["error"] = f"{type(e).__name__}: {e}"
+
+    t = threading.Thread(target=target, daemon=True, name="measure-watchdog")
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        return False, None, f"WatchdogTimeout: exceeded {timeout_s:.3f}s wall"
+    if "error" in box:
+        return False, None, box["error"]
+    return True, box.get("value"), ""
 
 
 def _mad_reject(runs: list, z: float) -> tuple[list, int]:
@@ -117,70 +246,126 @@ def _device_of(args) -> torch.device:
     return torch.device("cpu")
 
 
+class _RunFailure(RuntimeError):
+    """Internal: a run-phase failure whose message is already formatted
+    (the watchdog path) — the outer handler must not re-prefix it."""
+
+
 def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
                   pattern: str = "", impl: dict | None = None,
+                  precompiled: CompiledArtifact | None = None,
+                  run_timeout_s: float = 0.0,
                   check_finite: bool = False,
                   outlier_mad: float = 0.0,
                   remeasure: int = 0) -> Measurement:
-    """Measure one offload pattern: the first synchronized call (its wall
-    time is ``compile_seconds``), ``warmup - 1`` more calls, then ``reps``
-    timed calls; ``run_seconds`` is the median of the kept reps.  Timing
-    runs on the device of ``args``' tensors (CUDA events on a card).
+    """Measure one offload pattern: ``fn`` (or the pattern a
+    :func:`compile_pattern` artifact ``precompiled`` holds, whose compile
+    seconds — or failure — the Measurement then reports), the first
+    synchronized call, ``warmup - 1`` more calls and ``reps`` timed calls;
+    ``run_seconds`` is the median of the kept reps.  Timing runs on the
+    device of ``args``' tensors (CUDA events on a card).
 
+    Fault-tolerance knobs (all off by default):
+
+    * ``run_timeout_s > 0`` runs every call (first, warm-up, each timed
+      rep) under the watchdog; expiry is a transient ``RunTimeout``, after
+      which the whole device is synchronized — the abandoned call's
+      launches must not fall inside the next pattern's reps — and the
+      Measurement says ``drained``.  A
+      launch that fails during the drain (a kernel that trapped) raises
+      out of here: a dead device is not a slow pattern.
     * ``check_finite`` fails the measurement (permanent ``NonFiniteOutput``)
-      when the first call produces NaN/Inf — a numerically-broken offload
-      must never win on speed.
+      when the first call produces NaN/Inf.
     * ``outlier_mad > 0`` rejects timed reps whose modified z-score exceeds
       the threshold, re-measures up to ``remeasure`` replacement reps, and
       reports the median of the kept reps; ``runs`` keeps every raw rep and
       ``outliers_rejected`` the count.
 
-    Never raises: a failure is a Measurement with ``ok=False``."""
+    Never raises for a failing pattern: a failure is a Measurement with
+    ``ok=False``."""
     impl = dict(impl) if impl is not None else None
+    art = precompiled if precompiled is not None else CompiledArtifact(fn, 0.0)
+
+    def failed(phase: str, error: str, drained: bool = False) -> Measurement:
+        return Measurement(pattern, art.compile_seconds, float("inf"), [],
+                           False, error, impl=impl,
+                           compile_wall_s=art.compile_seconds,
+                           failure_kind=classify_failure(error),
+                           failure_phase=phase, drained=drained)
+
+    if not art.ok:
+        return failed("compile", art.error)
+    call = art.fn
     dev = _device_of(args)
     cuda = dev.type == "cuda"
+    stream = None
+    if cuda:
+        stream = torch.cuda.Stream(dev)
+        # the sample inputs were made on the caller's stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
 
-    def sync():
+    def drain() -> None:
         if cuda:
-            torch.cuda.synchronize(dev)
+            stream.synchronize()
+
+    def on_stream():
+        return (torch.cuda.stream(stream) if cuda
+                else contextlib.nullcontext())
+
+    def first_call():
+        with on_stream():
+            drain()
+            out = call(*args)
+            drain()
+        return out
+
+    def plain_call():
+        with on_stream():
+            return call(*args)
 
     def timed_rep() -> float:
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            sync()
-            start.record()
-            fn(*args)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / 1e3
-        t = time.perf_counter()
-        fn(*args)
-        return time.perf_counter() - t
+        with on_stream():
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                drain()
+                start.record(stream)
+                call(*args)
+                end.record(stream)
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            t = time.perf_counter()
+            call(*args)
+            return time.perf_counter() - t
 
-    def failed(phase: str, error: str, compile_s: float) -> Measurement:
-        return Measurement(pattern, compile_s, float("inf"), [], False, error,
-                           impl=impl, failure_kind=classify_failure(error),
-                           failure_phase=phase)
+    def guarded(body):
+        if not (run_timeout_s and run_timeout_s > 0):
+            return body()
+        ok, value, err = watchdog_call(body, timeout_s=run_timeout_s)
+        if not ok:
+            if "WatchdogTimeout" in err:
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                raise _RunFailure(f"RunTimeout: {err}")
+            raise _RunFailure(err)
+        return value
 
     with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
         t0 = time.perf_counter()
         try:
-            sync()
-            out = fn(*args)
-            sync()
+            out = guarded(first_call)
+        except _RunFailure as e:
+            return failed("first call", str(e), "RunTimeout" in str(e))
         except Exception as e:  # noqa: BLE001 — a pattern failing = not a solution
-            return failed("first call", f"{type(e).__name__}: {e}",
-                          time.perf_counter() - t0)
-        compile_s = time.perf_counter() - t0
+            return failed("first call", f"{type(e).__name__}: {e}")
+        first_s = time.perf_counter() - t0
         if check_finite and _nonfinite(out):
-            return failed("run", "NonFiniteOutput: pattern produced NaN/Inf",
-                          compile_s)
+            return failed("run", "NonFiniteOutput: pattern produced NaN/Inf")
         del out
         try:
             for _ in range(max(warmup - 1, 0)):
-                fn(*args)
-            runs = [timed_rep() for _ in range(reps)]
+                guarded(plain_call)
+            runs = [guarded(timed_rep) for _ in range(reps)]
             rejected = 0
             kept = runs
             if outlier_mad and outlier_mad > 0 and len(runs) >= 3:
@@ -188,14 +373,18 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
                 # bounded re-measurement: replace (some of) the rejected
                 # reps, then re-filter the full raw set once
                 for _ in range(min(rejected, max(int(remeasure), 0))):
-                    runs.append(timed_rep())
+                    runs.append(guarded(timed_rep))
                 if rejected:
                     refiltered, rejected = _mad_reject(runs, outlier_mad)
                     kept = refiltered if refiltered else kept
+        except _RunFailure as e:
+            return failed("run", str(e), "RunTimeout" in str(e))
         except Exception as e:  # noqa: BLE001 — a pattern failing = not a solution
-            return failed("run", f"{type(e).__name__}: {e}", compile_s)
-    return Measurement(pattern, compile_s, float(np.median(kept)), runs,
-                       impl=impl, outliers_rejected=rejected)
+            return failed("run", f"{type(e).__name__}: {e}")
+    return Measurement(pattern, art.compile_seconds, float(np.median(kept)),
+                       runs, impl=impl, first_run_seconds=first_s,
+                       compile_wall_s=art.compile_seconds,
+                       outliers_rejected=rejected)
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +412,14 @@ class Quarantine:
     ``record`` strikes every non-ref gene of a failed measurement (a failed
     multi-gene pattern can't name its culprit, so all its genes are
     suspects).  A gene reaching ``threshold`` strikes is quarantined: the
-    planner filters it from the Step-3 ranking and strategies stop
-    proposing it (:meth:`SearchState.gene_allowed`).  Records round-trip
-    through :class:`~repro_torch.core.plan_cache.PlanCache` entries under
+    planner filters it from the Step-3 ranking, strategies stop proposing
+    it (:meth:`SearchState.gene_allowed`), and the replanner never
+    re-offers a plan containing it.  Records round-trip through
+    :class:`~repro_torch.core.plan_cache.PlanCache` entries under
     ``measurement_key`` so future runs skip known-bad genes without
-    re-paying their failures.
+    re-paying their failures.  Transient failures are retried to success
+    by the executor and never reach ``record`` — only permanent,
+    retry-exhausted failures strike.
     """
 
     def __init__(self, threshold: int = 2):
@@ -246,15 +438,21 @@ class Quarantine:
         that just crossed the quarantine threshold."""
         if m.ok:
             return []
+        return self.record_failure(m.mapping(), m.error)
+
+    def record_failure(self, impl, error: str) -> list[str]:
+        """Strike every non-ref gene of ``impl`` directly (the serving-side
+        feedback path, where no Measurement exists — a plan that faulted
+        mid-serve or that the canary vetoed)."""
         newly: list[str] = []
         with self._lock:
-            for region, gene in sorted(m.mapping().items()):
+            for region, gene in sorted(dict(impl).items()):
                 if gene_variant(gene) == "ref":
                     continue
                 gid = self.gene_id(region, gene)
                 n = self._strikes.get(gid, 0) + 1
                 self._strikes[gid] = n
-                self._errors[gid] = str(m.error)
+                self._errors[gid] = str(error)
                 if n == self.threshold:
                     newly.append(gid)
         return newly
@@ -275,6 +473,10 @@ class Quarantine:
         with self._lock:
             return sorted(g for g, n in self._strikes.items()
                           if n >= self.threshold)
+
+    def strikes(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._strikes)
 
     def to_records(self) -> list[dict]:
         """JSON-serializable strike records (persisted in cache entries)."""
@@ -304,27 +506,41 @@ class Quarantine:
 
 @dataclass
 class MeasurementLedger:
-    """In-run measurement memo with the budget attached (serial).
+    """In-run measurement memo with the budget attached.
 
     ``measure(impl)`` returns the cached Measurement on a hit (free), runs
     ``measure_fn`` and decrements ``budget`` on a miss, and returns ``None``
     once the budget is exhausted.  ``order`` is the measured (miss) sequence
     — exactly the patterns that consumed budget, in measurement order.
 
-    ``measure_batch(impls)`` is the batched ask: every hit (including an
-    in-batch duplicate) is served free, misses consume budget *in batch
-    order* until it runs out (``None`` for the unaffordable tail).
+    ``measure_batch(impls)`` is the batched ask: every hit is served free,
+    misses consume budget *in batch order* until it runs out (``None`` for
+    the unaffordable tail), and the affordable misses are measured together
+    through ``measure_batch_fn`` when one is wired (the verification
+    executor: all compiles in flight at once, timed reps strictly serial).
+    Without a batch fn, misses are measured one after another through
+    ``measure_fn`` — identical results, no pipelining.
 
     ``prime`` seeds an entry that never bills against ``d``: the all-ref
     baseline (the paper's pre-existing CPU system), and measurements
     recovered from previous runs of the same program on the same backend.
 
+    ``prefetch(impls)`` is a free hint — "these patterns may be proposed
+    soon" — forwarded (ledger-missing subset only) to ``prefetch_fn`` so an
+    executor can compile ahead.  It never measures and never spends budget.
+
     ``served`` is every distinct Measurement handed to the strategy this
     run, hits and misses alike, in first-served order — the set the planner
     selects the winner from.
+
+    Thread-safe: concurrent ``measure`` calls on the same pattern collapse
+    to one measurement (the losers wait and are served the winner's entry
+    as hits), and budget accounting stays exact under races.
     """
     measure_fn: Callable
     budget: int
+    measure_batch_fn: Optional[Callable] = None
+    prefetch_fn: Optional[Callable] = None
     # failed measurements strike their genes here, so the strategies'
     # quarantine filter sees new offenders mid-run
     quarantine: Optional[Quarantine] = None
@@ -335,13 +551,20 @@ class MeasurementLedger:
     _entries: dict[tuple, Measurement] = field(default_factory=dict)
     _primed: set = field(default_factory=set)
     _served_keys: set = field(default_factory=set)
+    _inflight: dict = field(default_factory=dict)   # key -> threading.Event
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def prime(self, impl, measurement: Measurement) -> None:
         """Record a measurement taken outside the budget (the all-ref
         baseline, or a measurement persisted by a previous plan run)."""
         k = impl_key(impl)
-        self._entries[k] = measurement
-        self._primed.add(k)
+        with self._lock:
+            self._entries[k] = measurement
+            self._primed.add(k)
+
+    def seen(self, impl) -> bool:
+        with self._lock:
+            return impl_key(impl) in self._entries
 
     def exhausted(self) -> bool:
         return self.budget <= 0
@@ -352,7 +575,14 @@ class MeasurementLedger:
         return [m for m in self.served
                 if impl_key(m.impl or {}) in self._primed]
 
+    def failures(self) -> list[Measurement]:
+        """Budget-consuming measurements that failed, in measurement order
+        (each carries ``attempts``, ``failure_kind``, ``failure_phase``)."""
+        with self._lock:
+            return [m for m in self.order if not m.ok]
+
     def _serve(self, key: tuple, m: Measurement) -> Measurement:
+        # callers hold self._lock
         if key not in self._served_keys:
             self._served_keys.add(key)
             self.served.append(m)
@@ -360,21 +590,134 @@ class MeasurementLedger:
 
     def measure(self, impl) -> Optional[Measurement]:
         k = impl_key(impl)
-        hit = self._entries.get(k)
-        if hit is not None:
-            self.hits += 1
-            return self._serve(k, hit)
-        if self.budget <= 0:
-            return None
-        m = self.measure_fn(impl)
-        self.budget -= 1
-        self.misses += 1
-        self._entries[k] = m
-        self.order.append(m)
+        while True:
+            with self._lock:
+                hit = self._entries.get(k)
+                if hit is not None:
+                    self.hits += 1
+                    return self._serve(k, hit)
+                ev = self._inflight.get(k)
+                if ev is None:
+                    if self.budget <= 0:
+                        return None
+                    self.budget -= 1
+                    self.misses += 1
+                    ev = threading.Event()
+                    self._inflight[k] = ev
+                    break
+            # another thread is measuring this exact pattern: wait for its
+            # entry instead of double-spending budget on a duplicate
+            ev.wait()
+        try:
+            m = self.measure_fn(impl)
+        except BaseException:
+            # measure_fn returns failure Measurements and should not raise;
+            # if it does anyway, release any waiters AND refund the reserved
+            # budget before propagating — no entry was stored
+            with self._lock:
+                self.budget += 1
+                self.misses -= 1
+                self._inflight.pop(k, None)
+            ev.set()
+            raise
+        with self._lock:
+            self._entries[k] = m
+            self.order.append(m)
+            self._inflight.pop(k, None)
+            res = self._serve(k, m)
+        ev.set()
         if self.quarantine is not None and not m.ok:
             self.quarantine.record(m)
-        return self._serve(k, m)
+        return res
 
     def measure_batch(self, impls) -> list[Optional[Measurement]]:
-        """Batched ask: one ``Optional[Measurement]`` per input, in order."""
-        return [self.measure(impl) for impl in impls]
+        """Batched ask: one ``Optional[Measurement]`` per input, in order.
+        Hits (including in-batch duplicates) are free; misses consume budget
+        in batch order and are measured together via ``measure_batch_fn``
+        when available."""
+        keys = [impl_key(i) for i in impls]
+        to_measure: list[tuple] = []          # (key, impl) misses, batch order
+        with self._lock:
+            reserved = set()
+            for k, impl in zip(keys, impls):
+                if (k in self._entries or k in reserved
+                        or k in self._inflight):
+                    continue
+                if self.budget <= 0:
+                    continue
+                self.budget -= 1
+                self.misses += 1
+                reserved.add(k)
+                self._inflight[k] = threading.Event()
+                to_measure.append((k, impl))
+        measured_keys = {k for k, _ in to_measure}
+        if to_measure:
+            batch = [impl for _, impl in to_measure]
+            try:
+                if self.measure_batch_fn is not None:
+                    ms = list(self.measure_batch_fn(batch))
+                else:
+                    ms = [self.measure_fn(impl) for impl in batch]
+            except BaseException:
+                # refund the whole reservation: nothing was stored
+                with self._lock:
+                    for k, _ in to_measure:
+                        self.budget += 1
+                        self.misses -= 1
+                        ev = self._inflight.pop(k, None)
+                        if ev is not None:
+                            ev.set()
+                raise
+            with self._lock:
+                stored: set = set()
+                for (k, _), m in zip(to_measure, ms):
+                    self._entries[k] = m
+                    self.order.append(m)
+                    stored.add(k)
+                    ev = self._inflight.pop(k, None)
+                    if ev is not None:
+                        ev.set()
+                for k, _ in to_measure:
+                    # a short batch_fn return: refund the unmeasured tail
+                    if k not in stored:
+                        self.budget += 1
+                        self.misses -= 1
+                        ev = self._inflight.pop(k, None)
+                        if ev is not None:
+                            ev.set()
+            if self.quarantine is not None:
+                for m in ms:
+                    if m is not None and not m.ok:
+                        self.quarantine.record(m)
+        # patterns another thread is measuring right now: wait so they can
+        # be served below instead of dropped
+        for k in set(keys) - measured_keys:
+            with self._lock:
+                ev = self._inflight.get(k)
+            if ev is not None:
+                ev.wait()
+        out: list[Optional[Measurement]] = []
+        with self._lock:
+            first_seen: set = set()
+            for k in keys:
+                m = self._entries.get(k)
+                if m is None:                 # unaffordable: budget ran out
+                    out.append(None)
+                    continue
+                if not (k in measured_keys and k not in first_seen):
+                    self.hits += 1            # pre-existing or in-batch dup
+                first_seen.add(k)
+                out.append(self._serve(k, m))
+        return out
+
+    def prefetch(self, impls) -> None:
+        """Free compile-ahead hint: forwards the subset the ledger has no
+        entry (or in-flight measurement) for to ``prefetch_fn``."""
+        if self.prefetch_fn is None:
+            return
+        with self._lock:
+            fresh = [i for i in impls
+                     if impl_key(i) not in self._entries
+                     and impl_key(i) not in self._inflight]
+        if fresh:
+            self.prefetch_fn(fresh)

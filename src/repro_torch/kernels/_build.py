@@ -3,10 +3,16 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers) and
 is compiled on its own by one ``nvcc`` process into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout (the
-directory is listed in ``.gitignore``).  The hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+directory is listed in ``.gitignore``), or into the directory the
+environment variable ``REPRO_TORCH_BUILD_DIR`` names, read at each build
+and load (a fresh directory builds every source cold).  The hash covers the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is reused.
 :func:`build` starts one ``nvcc`` per stale source, all together, and waits
-for every one; a failed build raises with ``nvcc``'s stderr.  ``-Xptxas -v``
+for every one; a failed build raises with ``nvcc``'s stderr.  :func:`load`
+holds a lock of the source's own while it builds and loads, so threads
+loading different sources (the planner's concurrent compile steps) build
+together, and threads asking for the same source build it once.  ``-Xptxas -v``
 makes ``ptxas`` report each kernel's registers and shared memory, kept
 beside the library (:func:`ptxas_report`).
 
@@ -30,8 +36,9 @@ SOURCES = ("fir", "mriq", "flash_attention", "decode_attention", "ssm_scan",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()                  # guards _SOURCE_LOCKS only
+_SOURCE_LOCKS: dict[str, threading.Lock] = {}
+_LIBS: dict[Path, ctypes.CDLL] = {}        # by library path
 
 
 def _nvcc() -> str:
@@ -48,11 +55,18 @@ def _nvcc() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
+def build_dir() -> Path:
+    """The directory the libraries are built into: ``REPRO_TORCH_BUILD_DIR``
+    when set, else ``build/repro_torch`` at the root of the checkout."""
+    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    return Path(override) if override else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:
@@ -69,7 +83,7 @@ def build(names=SOURCES) -> list[str]:
     stale = [n for n in names if not library_path(n).exists()]
     if not stale:
         return []
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     try:
@@ -100,14 +114,26 @@ def build(names=SOURCES) -> list[str]:
     return stale
 
 
+def _source_lock(name: str) -> threading.Lock:
+    with _LOCK:
+        lock = _SOURCE_LOCKS.get(name)
+        if lock is None:
+            lock = _SOURCE_LOCKS[name] = threading.Lock()
+        return lock
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if stale."""
-    with _LOCK:
-        lib = _LIBS.get(name)
+    path = library_path(name)
+    lib = _LIBS.get(path)
+    if lib is not None:
+        return lib
+    with _source_lock(name):
+        lib = _LIBS.get(path)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(path))
+            _LIBS[path] = lib
         return lib
 
 

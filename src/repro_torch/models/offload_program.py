@@ -25,10 +25,14 @@ ANALYSIS_SEQ = 4096      # the sequence length the regions are analysed at
 
 
 def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
-                    device=None) -> OffloadableProgram:
+                    device=None,
+                    plan_extra: dict | None = None) -> OffloadableProgram:
     """Block-level program for ``arch`` on ``device`` (default ``cuda``).
     ``batch``/``seq`` are measurement conditions: they enter the plan and
-    measurement keys (``cache_extra``)."""
+    measurement keys (``cache_extra``).  ``plan_extra`` carries plan-key-only
+    regime conditions (``core.planner.conditions_from_stats``), so an online
+    replan under a new serving regime re-opens the search while staying
+    ledger-primed by every sibling regime's measurements."""
     dev = resolve_device(device)
     cfg = get_config(arch).reduced()
     params_box: list = []          # lazy: a plan-cache hit never builds
@@ -91,4 +95,5 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
         description="block-level offload planning over an assigned arch",
         # batch/seq change every Step-4 timing but not the abstract region
         # args, so they must be part of the plan-cache key
-        cache_extra={"batch": batch, "seq": seq})
+        cache_extra={"batch": batch, "seq": seq},
+        plan_extra=dict(plan_extra or {}))

@@ -46,13 +46,46 @@ def _row_seed(seed: int, rid: int, step: int) -> int:
 
 
 def make_sampler(seed: int):
-    """Returns ``sample(logits, rids, steps, temps, top_ks)`` -> int32 tokens
-    [B] (a host NumPy array); ``logits`` is [B, V] on any device, the
-    per-request knobs are sequences of length B."""
+    """Returns ``sample(logits, rids, steps, temps, top_ks, flag=None)`` ->
+    int32 tokens [B] (a host NumPy array); ``logits`` is [B, V] on any
+    device, the per-request knobs are sequences of length B.
 
-    def sample(logits: torch.Tensor, rids, steps, temps, top_ks) -> np.ndarray:
+    With ``flag`` (a 0-d boolean tensor on the logits' device — the
+    engine's "these logits are finite") it returns ``(tokens, flag)``: the
+    flag travels in the same device-to-host copy as the greedy tokens, and
+    no row is sampled at a temperature when it is False."""
+
+    staging: dict = {}     # size -> (pinned host buffer, event), on a card
+
+    def to_host(t: torch.Tensor) -> np.ndarray:
+        """One device-to-host copy of the int32 vector ``t``.  On a card it
+        goes to a pinned buffer and the host waits on an event, which
+        releases the interpreter lock: another thread (the replanner's)
+        runs while the tick waits for its step."""
+        if t.device.type != "cuda":
+            return t.numpy().copy()
+        buf = staging.get(t.numel())
+        if buf is None:
+            buf = staging[t.numel()] = (
+                torch.empty(t.numel(), dtype=torch.int32, pin_memory=True),
+                torch.cuda.Event())
+        host, done = buf
+        host.copy_(t, non_blocking=True)
+        done.record()
+        done.synchronize()
+        return host.numpy().copy()
+
+    def sample(logits: torch.Tensor, rids, steps, temps, top_ks,
+               flag: torch.Tensor | None = None):
         lg = logits.float()
-        out = lg.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        greedy = lg.argmax(dim=-1).to(torch.int32)
+        if flag is None:
+            out = to_host(greedy)
+        else:
+            host = to_host(torch.cat([greedy, flag.reshape(1).to(torch.int32)]))
+            out, ok = host[:-1].copy(), bool(host[-1])
+            if not ok:
+                return out, False
         for i, (rid, step, temp, top_k) in enumerate(
                 zip(rids, steps, temps, top_ks)):
             if temp <= 0.0:
@@ -66,6 +99,6 @@ def make_sampler(seed: int):
             gen = torch.Generator(device=row.device).manual_seed(
                 _row_seed(seed, int(rid), int(step)))
             out[i] = int(torch.multinomial(probs, 1, generator=gen))
-        return out
+        return out if flag is None else (out, True)
 
     return sample

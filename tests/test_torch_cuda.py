@@ -6,6 +6,8 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -641,7 +643,8 @@ def test_prefill_replays_of_two_buckets_keep_each_slot_on_cuda(cuda_device,
     want = []
     for slot, (n, bucket) in enumerate(((5, 8), (14, 16), (7, 8))):
         tokens = _padded(n, bucket, seed=10 + slot)
-        logits, one = gen.prefill(tokens, n)
+        logits, one, finite = gen.prefill(tokens, n)
+        assert bool(finite)
         cache_insert(eng.cache, one, slot)
         e_logits, e_cache = _eager_prefill(prefill, params, tokens, n,
                                            cuda_device)
@@ -664,7 +667,7 @@ def test_graph_engine_serves_the_eager_twins_streams_on_cuda(cuda_device,
     from repro_torch.serving.graphs import EagerStep
 
     class EagerTwin(ServeEngine):
-        def _make_step(self, fn, fixed, feeds, warm_fixed=None):
+        def _make_step(self, fn, fixed, feeds, **_):
             return EagerStep(fn, fixed)
 
     cfg, params, impl = _graph_model(arch, cuda_device)
@@ -684,3 +687,128 @@ def test_graph_engine_serves_the_eager_twins_streams_on_cuda(cuda_device,
         assert rounds[0] == rounds[1]
         runs.append(rounds[0])
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# slice 8: a generation prepared on another thread, the device-side fault
+# seam, and the drain after a run timeout
+# ---------------------------------------------------------------------------
+PROBE = {"replan_probe": "offload"}     # a region no block dispatches
+
+
+@pytest.mark.cuda
+def test_capture_on_a_worker_thread_while_the_engine_replays_on_cuda(
+        cuda_device):
+    """``prepare_plan`` on a worker thread captures its graphs (thread_local
+    mode, its own side stream, its own pool) while the main thread keeps
+    ticking the engine's replays; the swapped-in generation then serves,
+    and every stream equals a never-swapped twin's bit for bit."""
+    import threading
+    from repro_torch.serving.engine import ServeEngine
+    arch = "recurrentgemma-2b"
+    cfg, params, impl = _graph_model(arch, cuda_device)
+    eng = ServeEngine(cfg, params, slots=2, ctx=GRAPH_CTX, impl=impl)
+    twin = ServeEngine(cfg, params, slots=2, ctx=GRAPH_CTX, impl=impl)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)
+               for n in (3, 12, 7, 16, 9, 5, 14, 6)]
+    for e in (eng, twin):
+        for p in prompts[:2]:
+            e.submit(p, max_new_tokens=12)
+        e.step()                        # buckets 8 and 16 captured
+    box = {}
+
+    def prepare():
+        try:
+            box["gen"] = eng.prepare_plan({**impl, **PROBE})
+        except BaseException as err:  # noqa: BLE001 — asserted below
+            box["err"] = err
+
+    worker = threading.Thread(target=prepare)
+    worker.start()
+    ticks_meanwhile = 0
+    while worker.is_alive():
+        eng.step()
+        ticks_meanwhile += 1
+        if not eng.busy:
+            eng.submit(prompts[2], max_new_tokens=4)
+            twin.submit(prompts[2], max_new_tokens=4)
+    worker.join()
+    for _ in range(ticks_meanwhile):
+        twin.step()
+    assert "err" not in box, box.get("err")
+    gen = box["gen"]
+    assert gen.decode.step.graph is not None and set(gen.prefill.steps) == {8, 16}
+    assert gen.decode._pool != eng._gen.decode._pool   # a pool of its own
+    eng.offer_plan(gen)
+    for e in (eng, twin):
+        for p in prompts[3:]:
+            e.submit(p, max_new_tokens=6)
+    done, want = eng.run_to_completion(), twin.run_to_completion()
+    assert eng.swaps == 1 and eng.rollbacks == 0
+    assert [r.generated for r in done] == [r.generated for r in want]
+
+
+@pytest.mark.cuda
+def test_device_nan_flag_in_a_replayed_graph_rolls_back_on_cuda(cuda_device):
+    """A generation captured through ``DeviceNaN`` while disarmed replays
+    NaN once armed: the finite flag that comes back with the tokens rolls
+    the engine back within the tick, the recurrent state the faulted
+    decode overwrote is restored, and the streams equal a twin's."""
+    from repro_torch.core.faults import DeviceNaN
+    from repro_torch.serving.engine import ServeEngine
+    cfg, params, impl = _graph_model("recurrentgemma-2b", cuda_device)
+    fault = DeviceNaN("mlp_core", base="ref", name="nan")
+    try:
+        eng = ServeEngine(cfg, params, slots=2, ctx=GRAPH_CTX, impl=impl)
+        twin = ServeEngine(cfg, params, slots=2, ctx=GRAPH_CTX, impl=impl)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 11)]
+        for e in (eng, twin):
+            for p in prompts:
+                e.submit(p, max_new_tokens=10)
+            for _ in range(3):
+                e.step()
+        bad = eng.prepare_plan({**impl, "mlp_core": "nan"})  # captured clean
+        fault.arm()
+        eng.offer_plan(bad)
+        eng.step()
+        twin.step()
+        assert eng.rollbacks == 1 and eng.degraded
+        assert "non-finite" in eng.stats()["last_fault"]
+        done, want = eng.run_to_completion(), twin.run_to_completion()
+        assert [r.generated for r in done] == [r.generated for r in want]
+        # the faulted generation left the trace memo: once nothing else
+        # refers to it, its graphs and their pool are freed
+        assert bad.key not in eng._trace_memo
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved(cuda_device)
+        del bad
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_reserved(cuda_device) < held
+    finally:
+        fault.close()
+
+
+@pytest.mark.cuda
+def test_a_run_timeout_drains_the_device_on_cuda(cuda_device):
+    """A call whose thread outlives ``run_timeout_s`` is abandoned, and its
+    launch still running on the card is drained before time_callable
+    returns: the Measurement says ``drained`` and the stream is idle."""
+    import time
+    from repro_torch.core.search import time_callable
+    x = torch.ones(4, device=cuda_device)
+
+    def stuck(x):
+        torch.cuda._sleep(1_500_000_000)      # ~1 s of device time
+        time.sleep(3.0)                       # the host thread hangs too
+        return x
+
+    m = time_callable(stuck, (x,), warmup=0, reps=1, run_timeout_s=0.5)
+    assert not m.ok and "RunTimeout" in m.error and m.drained
+    assert m.failure_kind == "transient"
+    assert torch.cuda.current_stream(cuda_device).query()
+    own = time_callable(lambda t: t * 2, (x,), warmup=1, reps=3)
+    assert own.ok and len(own.runs) == 3

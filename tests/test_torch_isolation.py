@@ -46,7 +46,11 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(sources) >= 20
     names = {p.relative_to(SRC).as_posix() for p in sources}
     assert {"repro_torch/core/extract.py", "repro_torch/kernels/rmsnorm.py",
-            "repro_torch/launch/loop_extraction.py"} <= names
+            "repro_torch/launch/loop_extraction.py",
+            "repro_torch/core/executor.py", "repro_torch/core/faults.py",
+            "repro_torch/core/cost_model.py", "repro_torch/serving/replan.py",
+            "repro_torch/launch/strategies.py",
+            "repro_torch/launch/replanning.py"} <= names
     sources.append(SRC.parent / "chip_smoke.py")       # the card's smoke test
     offenders = [f"{p.relative_to(SRC.parent)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
@@ -60,7 +64,8 @@ def _entry_points():
     from repro_torch.apps import from_numpy, mriq, tdfir
     from repro_torch.apps.decode_attn import make_decode_program
     from repro_torch.core.device import resolve_device
-    from repro_torch.launch import fig4_offload, loop_extraction, serve
+    from repro_torch.launch import (fig4_offload, loop_extraction,
+                                    replanning, serve, strategies)
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.offload_program import make_lm_program
     x = np.zeros((2, 8), np.complex64)
@@ -83,6 +88,10 @@ def _entry_points():
         "serve.main recurrentgemma-2b": lambda: serve.main(
             ["--arch", "recurrentgemma-2b", "--reduced"]),
         "loop_extraction.main": lambda: loop_extraction.main(["--reduced"]),
+        "strategies.main": lambda: strategies.main(["--reduced"]),
+        "replanning.main": lambda: replanning.main([]),
+        "serve.main --replan-on-drift": lambda: serve.main(
+            ["--arch", "recurrentgemma-2b", "--reduced", "--replan-on-drift"]),
     }
 
 

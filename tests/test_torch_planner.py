@@ -109,11 +109,13 @@ def test_strategy_proposes_the_jax_sequence(strategy, case, base_s, budget):
 
 
 def test_make_strategy_refuses_unported_strategies():
+    # every strategy is ported now: genetic and surrogate (and auto on a
+    # large space) build, and only an unknown name is refused
     for name in ("genetic", "surrogate"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            TSTRAT.make_strategy(PlannerConfig(strategy=name))
-    with pytest.raises(NotImplementedError):          # auto -> surrogate
-        TSTRAT.make_strategy(PlannerConfig(strategy="auto"), space_size=100)
+        strat = TSTRAT.make_strategy(PlannerConfig(strategy=name))
+        assert isinstance(strat, TSTRAT.GeneticSearch) and strat.name == name
+    assert TSTRAT.make_strategy(PlannerConfig(strategy="auto"),
+                                space_size=100).name == "surrogate"
     assert TSTRAT.make_strategy(PlannerConfig(strategy="auto"),
                                 space_size=3).name == "exhaustive"
     assert TSTRAT.make_strategy(PlannerConfig(strategy="auto"),

@@ -197,6 +197,9 @@ def test_serve_launcher_plans_then_hits_the_cache(tmp_path, capsys):
 
 
 def test_a_kernel_error_propagates_with_no_rollback(model):
+    """A kernel that fails where its step is built (on the CPU the step's
+    first call, on a card its warm-up and capture) raises out of the
+    engine: nothing rolls back to the plain version."""
     from repro_torch.core.regions import register_variant, unregister_variant
     _, tcfg, _, tparams = model
 
@@ -210,6 +213,7 @@ def test_a_kernel_error_propagates_with_no_rollback(model):
         eng.submit(np.zeros(4, np.int32), max_new_tokens=2)
         with pytest.raises(RuntimeError, match="kernel fault"):
             eng.run_to_completion()
+        assert eng.rollbacks == 0 and not eng.degraded
     finally:
         unregister_variant("attn_core", "broken_for_test")
 

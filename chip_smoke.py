@@ -135,6 +135,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    before the swap, after it and after the rollback.
    Prints the swap tick's time against the median tick and the decode
    tok/s before and after the swap.
+14. serve mixtral-8x7b — the slice-9 main path, Mixture-of-Experts: plans
+   ``make_lm_program("mixtral-8x7b")`` (regions ``attn_core`` and
+   ``moe_dispatch``), builds Mixtral-8x7B at full width (d_model 4,096,
+   32/8 heads x 128, 8 experts top-2 of d_ff 14,336, vocab 32,000) with 16
+   of its 32 layers (the 32 take ~87 GiB in bf16, more than the card) and
+   serves the 3 requests of phase 6 as phase 6 does, with
+   ``attn_core=hopper`` over the planned pattern (the expert-choice
+   ``moe_ffn=offload`` default underneath); ``flash_attention`` must
+   launch.  The prefill logits' noise floor also takes attention in 2 x 2
+   chunks (expert choice turns a one-ulp difference into another pick at
+   an expert's capacity boundary, at every bucket).  Then one full-width
+   layer's routed block at 2,048 tokens (capacity 640, expert 0 favoured
+   so that tokens drop): ``moe_dispatch`` offload against ref, within
+   ``MOE_TOL``.  Then the unannotated reduced
+   model is discovered (``moe_dispatch`` must be found), planned, and run
+   with ``rmsnorm=hopper``, its logits held against the captured
+   program's; ``rmsnorm`` must launch.  Phases 6, 8, 9 and 14 print the
+   decode step's device time beside its weight-streaming bound (every
+   weight but the embedding table, and the whole cache, read once at
+   3.35 TB/s; an MoE step reads every expert).
 
 Every launch counter is set to 0 just before the path it belongs to runs
 and read just after it; the comparisons of phase 3 do not count.  A graph
@@ -147,6 +167,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -171,6 +192,17 @@ SFU_OPS_PER_S = FP32_FLOPS_PER_S / 16
 ARCH = "mistral-nemo-12b"
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "recurrentgemma-2b"
+# phase 14: Mixtral-8x7B at full width keeps 16 of its 32 layers (the 32
+# take ~87 GiB in bf16, more than the card holds); its routed block is held
+# ref against offload at a prefill of 2,048 tokens (capacity 640)
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 16
+MOE_TOKENS = 2048
+# moe_dispatch offload against ref: the same token-choice routing, the
+# combine rounded to bf16 in another place (a float32 sum of the k gated
+# outputs against bf16 products summed): the bf16 tolerance of
+# tests/test_kernels.py, on outputs of unit scale
+MOE_TOL = 2e-2
 SERVE_PROMPTS = (2060, 2048, 1000, 300, 100, 9)   # buckets 2080 ... 16
 SERVE_BUCKETS = (2080, 2048, 1024, 512, 128, 16)
 # phases 6 and 8 serve three of the six prompts (buckets 2,080, 512 and 16;
@@ -312,13 +344,14 @@ def replays_agree(torch, make, ins, outs, cases, what: str) -> None:
     del graph
 
 
-def profile_step(torch, fn, step_ms: float) -> str:
+def profile_step(torch, fn, step_ms: float) -> tuple[str, float | None]:
     """One call of ``fn`` (then a synchronize) under ``torch.profiler``:
     the device time (kernels, copies, memsets) as a share of the traced
     span (first host event to last device event; the tracer slows the
     step) and of ``step_ms``, the step's untraced host-clock time; the
     kernels it ran, and the four names that took the most device time.
-    "not measured" when the trace holds no device event."""
+    Returns that text and the device time in ms ("not measured" and None
+    when the trace holds no device event)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -330,7 +363,7 @@ def profile_step(torch, fn, step_ms: float) -> str:
     on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     if not on_device:
-        return "not measured (no device events in the trace)"
+        return "not measured (no device events in the trace)", None
     busy = sum(e.time_range.elapsed_us() for e in on_device)
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
@@ -343,7 +376,8 @@ def profile_step(torch, fn, step_ms: float) -> str:
     return (f"{busy / 1e3:.3f} ms on the device = {busy / span:.1%} of the "
             f"traced {span / 1e3:.3f} ms and {busy / 1e3 / step_ms:.1%} of "
             f"the untraced step; {len(kernels)} kernels; top: "
-            + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
+            + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top),
+            busy / 1e3)
 
 
 def clocks() -> str:
@@ -545,7 +579,9 @@ def main() -> int:
     from repro_torch.core.extract import discover
     from repro_torch.launch import loop_extraction
     from repro_torch.models import factory as F
+    from repro_torch.models import layers as L
     from repro_torch.models.lm import layer_plan
+    from repro_torch.models.moe import moe_capacity, route_tokens
     from repro_torch.models.offload_program import make_lm_program
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving.engine import ServeEngine
@@ -1362,15 +1398,18 @@ def main() -> int:
     decode_ms: dict = {}
 
     def serve_arch(arch: str, hopper: tuple[str, ...],
-                   mix: tuple[int, ...] = tuple(range(len(SERVE_PROMPTS)))
-                   ) -> dict:
-        """Plan ``make_lm_program(arch)`` (then a cache hit), draw the full
-        model on the card, serve the request mix twice with the ``hopper``
-        regions over the planned pattern (captures, then replays) and once
-        on an eager twin, time the decode step both ways, and hold each
-        request's prefill logits under hopper against ref.  Every launch
-        counter is zeroed first; returns the counts of planning and the
-        engine's two rounds."""
+                   mix: tuple[int, ...] = tuple(range(len(SERVE_PROMPTS))),
+                   ncfg=None, floor_variants: dict | None = None) -> dict:
+        """Plan ``make_lm_program(arch)`` (then a cache hit), draw the model
+        (``ncfg``, by default the arch's full config) on the card, serve the
+        request mix twice with the ``hopper`` regions over the planned
+        pattern (captures, then replays) and once on an eager twin, time the
+        decode step both ways against its weight-streaming bound, and hold
+        each request's prefill logits under hopper against ref, the noise
+        floor being offload against ref and, where given, each of
+        ``floor_variants`` (name -> fn, registered for the hopper regions
+        for this comparison only).  Every launch counter is zeroed first;
+        returns the counts of planning and the engine's two rounds."""
         for counter in counters:
             counter.launches = 0
         with tempfile.TemporaryDirectory() as tmp:
@@ -1389,14 +1428,18 @@ def main() -> int:
             print(f"re-plan: served from plan cache with "
                   f"{len(again.measurements)} measurements")
         impl = Impl({**report.best_impl(), **{r: "hopper" for r in hopper}})
-        ncfg = get_config(arch)
+        depth = get_config(arch).num_layers
+        ncfg = ncfg or get_config(arch)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params = F.init_params(ncfg, torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
         leaves = tree_leaves(params)
         unit, reps, tail = layer_plan(ncfg)
-        print(f"{arch}: {ncfg.num_layers} layers (full depth: {reps} x "
+        print(f"{arch}: {ncfg.num_layers} layers ("
+              + ("full depth" if ncfg.num_layers == depth
+                 else f"{ncfg.num_layers} of {depth}")
+              + f": {reps} x "
               f"{'/'.join(unit)}{' + ' + '/'.join(tail) if tail else ''}), "
               f"d_model {ncfg.d_model}, heads {ncfg.num_heads}/"
               f"{ncfg.num_kv_heads} x {ncfg.resolved_head_dim if ncfg.num_heads else 0}"
@@ -1405,6 +1448,9 @@ def main() -> int:
                  if ncfg.family == "ssm" else "")
               + (f", d_rnn {ncfg.rglru_d_rnn}, window {ncfg.attn_window}"
                  if ncfg.family == "hybrid" else "")
+              + (f", {ncfg.num_experts} experts top-{ncfg.experts_per_token}"
+                 f" of d_ff {ncfg.moe_d_ff or ncfg.d_ff}" if ncfg.is_moe
+                 else "")
               + f": {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
               f"{sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
               f" GiB, drawn on the card in {time.perf_counter() - t0:.1f} s")
@@ -1514,10 +1560,29 @@ def main() -> int:
         print(f"decode step [{SERVE_SLOTS} slots] host clock, synchronized, "
               f"median of 20: graph replay {ms['graph']:.3f} ms, eager "
               f"{ms['eager']:.3f} ms ({ms['eager'] / ms['graph']:.2f}x)")
-        prof = {}
+        prof, device_ms = {}, {}
         for k, fn in steps.items():
-            prof[k] = profile_step(torch, fn, ms[k])
+            prof[k], device_ms[k] = profile_step(torch, fn, ms[k])
             print(f"  profiled {k}: {prof[k]}")
+        busy = device_ms["graph"]
+        # the least a step can take: every weight it reads (the embedding
+        # table gives 4 rows) and the whole KV / state cache, once, at the
+        # card's memory rate.  An MoE step reads every expert: at decode
+        # each expert's capacity holds all the slots (moe_ffn=offload)
+        weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        if not ncfg.tie_embeddings:
+            embed = params["embed"]
+            weight_bytes -= embed.numel() * embed.element_size()
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(engine.cache))
+        bound = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        print(f"decode step device time (graph replay, torch.profiler) "
+              + (f"{busy:.3f} ms" if busy is not None else "not measured")
+              + f" against its weight-streaming bound {bound:.3f} ms "
+              f"({weight_bytes / 1e9:.2f} GB of weights + "
+              f"{cache_bytes / 1e9:.2f} GB of cache at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+              + (f": {busy / bound:.2f}x" if busy is not None else ""))
         del replay, eager, steps
         decode_ms[arch] = (ms, prof)
 
@@ -1525,8 +1590,11 @@ def main() -> int:
         # engine's own prefill entry point), with offload as the noise floor
         # of two plain versions
         def prefill_logits(variant: str, prompt):
+            # the engine's pattern: over the architectural defaults (MoE:
+            # expert choice), as ServeEngine merges them
             step = F.make_bucketed_prefill_step(
-                ncfg, impl=Impl({**impl, **{r: variant for r in hopper}}),
+                ncfg, impl=Impl({**F.default_impl(ncfg), **impl,
+                                 **{r: variant for r in hopper}}),
                 ctx=SERVE_CTX)
             n = prompt.size
             padded = np.zeros((1, F.prefill_bucket(n, SERVE_CTX)), np.int32)
@@ -1537,23 +1605,42 @@ def main() -> int:
 
         worst = floor = 0.0
         agree = 0
-        for prompt in prompts:
-            hop, ref = prefill_logits("hopper", prompt), prefill_logits("ref", prompt)
-            off = prefill_logits("offload", prompt)
-            if not bool(torch.isfinite(hop).all()):
-                raise AssertionError(f"serve {arch}: non-finite prefill logits")
-            diff = float((hop - ref).abs().max())
-            worst = max(worst, diff)
-            floor = max(floor, float((off - ref).abs().max()))
-            agree += int(hop.argmax() == ref.argmax())
-            print(f"  prompt {prompt.size:4d}: max |logits(hopper) - logits(ref)| "
-                  f"= {diff:.3e}, max |logits(hopper) - logits(offload)| = "
-                  f"{float((hop - off).abs().max()):.3e}, max |logits(ref)| = "
-                  f"{float(ref.abs().max()):.3f}")
+        extra = dict(floor_variants or {})
+        for name, fn in extra.items():
+            for r in hopper:
+                register_variant(r, name)(fn)
+        try:
+            for prompt in prompts:
+                hop = prefill_logits("hopper", prompt)
+                ref = prefill_logits("ref", prompt)
+                off = prefill_logits("offload", prompt)
+                if not bool(torch.isfinite(hop).all()):
+                    raise AssertionError(f"serve {arch}: non-finite prefill "
+                                         "logits")
+                diff = float((hop - ref).abs().max())
+                worst = max(worst, diff)
+                floors = {
+                    v: float((prefill_logits(v, prompt) - ref).abs().max())
+                    for v in extra}
+                floors["offload"] = float((off - ref).abs().max())
+                floor = max(floor, *floors.values())
+                agree += int(hop.argmax() == ref.argmax())
+                print(f"  prompt {prompt.size:4d}: max |logits(hopper) - "
+                      f"logits(ref)| = {diff:.3e}, max |logits(hopper) - "
+                      f"logits(offload)| = "
+                      f"{float((hop - off).abs().max()):.3e}"
+                      + "".join(f", max |logits({v}) - logits(ref)| = {f:.3e}"
+                                for v, f in floors.items())
+                      + f", max |logits(ref)| = {float(ref.abs().max()):.3f}")
+        finally:
+            for name in extra:
+                for r in hopper:
+                    unregister_variant(r, name)
         tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
         print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; noise "
-              f"floor (offload vs ref) {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} "
-              f"x floor, {LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
+              f"floor ({' and '.join(['offload', *extra])} vs ref) "
+              f"{floor:.3e}; tol max({LOGIT_NOISE_FACTOR} x floor, "
+              f"{LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
               f"{agree}/{len(prompts)} prompts")
         if worst > tol:
             raise AssertionError(f"serve {arch}: hopper and ref prefill logits "
@@ -2179,6 +2266,140 @@ def main() -> int:
     print(f"launches in phase 13: {replan_launches}; phase wall "
           f"{time.perf_counter() - t13:.1f} s")
     del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 14. serve full-width Mixtral-8x7B (slice-9 main path) ---------
+    phase("14. serve mixtral-8x7b")
+    t14 = time.perf_counter()
+    full_moe = get_config(MOE_ARCH)
+    moe_cfg = dataclasses.replace(full_moe, num_layers=MOE_LAYERS)
+    per_layer = ((full_moe.param_count() - moe_cfg.param_count())
+                 / (full_moe.num_layers - MOE_LAYERS))
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    print(f"{MOE_ARCH}: {full_moe.param_count() / 1e9:.3f} B parameters at "
+          f"{full_moe.num_layers} layers ({per_layer / 1e9:.3f} B a layer), "
+          f"{2 * full_moe.param_count() / 2**30:.1f} GiB in bf16, more than "
+          f"the card's {card_gib:.1f} GiB; cut to {MOE_LAYERS} layers: "
+          f"{moe_cfg.param_count() / 1e9:.3f} B, "
+          f"{2 * moe_cfg.param_count() / 2**30:.1f} GiB")
+    # the floor of the prefill-logits check: besides offload (which takes
+    # ref's single tile up to 512 tokens), attention in 2 x 2 chunks at
+    # every bucket.  Expert choice turns a one-ulp change of a token's
+    # hidden state into another pick at an expert's capacity boundary, so
+    # each plain pair that rounds differently is a sample of that noise
+    moe_launches = serve_arch(
+        MOE_ARCH, ("attn_core",), SHORT_MIX, ncfg=moe_cfg,
+        floor_variants={"halves": lambda q, k, v, **kw: L.chunked_attention(
+            q, k, v, q_chunk=max(q.shape[2] // 2, 1),
+            k_chunk=max(k.shape[2] // 2, 1), **kw)})
+    if moe_launches["flash_attention"] <= 0:
+        raise AssertionError("flash_attention was not launched serving "
+                             f"{MOE_ARCH}")
+
+    # the routed block of one full-width layer: moe_dispatch ref (dense
+    # one-hot) against offload (scatter slots), expert 0 favoured by every
+    # token so that its queue overflows and tokens drop
+    d, e = full_moe.d_model, full_moe.num_experts
+    f, k = full_moe.moe_d_ff or full_moe.d_ff, full_moe.experts_per_token
+    g14 = torch.Generator(device=dev).manual_seed(14)
+
+    def normal(*shape, fan_in):
+        return (torch.randn(shape, generator=g14, device=dev)
+                / math.sqrt(fan_in)).to(torch.bfloat16)
+
+    x = normal(MOE_TOKENS, d, fan_in=1)
+    x[:, 0] = x[:, 0].abs() + 1
+    moe_args = (x, normal(d, e, fan_in=d), normal(e, d, f, fan_in=d),
+                normal(e, d, f, fan_in=d), normal(e, f, d, fan_in=f))
+    moe_args[1][0, 0] = 1
+    cap = moe_capacity(MOE_TOKENS, e, k, full_moe.capacity_factor)
+    kw = {"num_experts": e, "k": k, "capacity": cap}
+    dispatch_fns = variants("moe_dispatch")
+    got = dispatch_fns["offload"](*moe_args, **kw)
+    want = dispatch_fns["ref"](*moe_args, **kw)
+    keep = route_tokens(x, moe_args[1], e, k, cap)[4]
+    assert_close(torch, got.float(), want.float(),
+                 f"moe_dispatch offload vs ref at [{MOE_TOKENS}, {d}]",
+                 rtol=MOE_TOL, atol=MOE_TOL)
+    moe_ms = {v: cuda_ms(torch, lambda v=v: dispatch_fns[v](*moe_args, **kw),
+                         calls=2, groups=5)
+              for v in ("ref", "offload")}
+    print(f"moe_dispatch at [{MOE_TOKENS}, {d}] x {e} experts [{d}, {f}] "
+          f"bf16, top-{k}, capacity {cap}: {int((~keep).sum())} of "
+          f"{keep.numel()} choices dropped; offload vs ref max abs err "
+          f"{max_abs_err(torch, got.float(), want.float()):.3e} (tol "
+          f"{MOE_TOL}), max |ref| {float(want.abs().max()):.3f}; ref "
+          f"{moe_ms['ref'][0]:.3f} ms {moe_ms['ref'][1]}, offload "
+          f"{moe_ms['offload'][0]:.3f} ms {moe_ms['offload'][1]} (CUDA "
+          "events, eager)")
+    if bool(keep.all()):
+        raise AssertionError("moe_dispatch: the capacity dropped no token")
+    del x, moe_args, got, want, keep
+    torch.cuda.empty_cache()
+
+    # static extraction of the unannotated reduced model: the routed block
+    # is rediscovered as moe_dispatch, planned, and run with rmsnorm=hopper
+    for counter in counters:
+        counter.launches = 0
+    fn14, args14 = loop_extraction.trace_arch(MOE_ARCH, device=dev)
+    t0 = time.perf_counter()
+    prog = discover(fn14, args14, name=MOE_ARCH)
+    print(prog.extraction.summary().splitlines()[0])
+    print(f"discovered reduced {MOE_ARCH} at {list(args14[0].shape)} in "
+          f"{time.perf_counter() - t0:.1f} s: regions "
+          + ", ".join(f"{r.name} {r.arg_signature()} {r.static_kwargs}"
+                      for r in prog.regions))
+    missing = {"moe_dispatch", "attn_core", "rmsnorm"} - {
+        r.name for r in prog.regions}
+    if missing:
+        raise AssertionError(f"extract {MOE_ARCH}: {sorted(missing)} not "
+                             "discovered")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(Path(tmp) / "plans.json")
+        report = AutoOffloader(cfg).plan(prog, cache=cache)
+        print(report.summary())
+        if not report.baseline.ok:
+            raise AssertionError(f"{prog.name}: unsound plan")
+        again = AutoOffloader(cfg).plan(prog, cache=cache)
+        if not again.from_cache or again.measurements:
+            raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
+    ref = prog.build(Impl())(*args14)
+    floor_impl = Impl({r.name: "offload" for r in prog.regions
+                       if "+" not in r.name and "offload" in variants(r.name)})
+    register_variant("rmsnorm", "torch_rms_norm")(
+        lambda x, w, eps=1e-6: torch.nn.functional.rms_norm(
+            x.float(), (x.shape[-1],), 1.0 + w.float(), eps).to(x.dtype))
+    try:
+        floors = {
+            i.describe(): float((prog.build(i)(*args14) - ref).abs().max())
+            for i in (floor_impl, Impl({"rmsnorm": "torch_rms_norm"}))}
+    finally:
+        unregister_variant("rmsnorm", "torch_rms_norm")
+    tol = max(LOGIT_NOISE_FACTOR * max(floors.values()), LOGIT_TOL_MIN)
+    run = Impl({**report.best_impl(), "rmsnorm": "hopper"})
+    before = RN.rmsnorm.launches
+    hop = prog.build(run)(*args14)
+    torch.cuda.synchronize()
+    per_forward = RN.rmsnorm.launches - before
+    diff = float((hop - ref).abs().max())
+    print(f"reduced {MOE_ARCH} with {run.describe()} vs the captured "
+          f"program: max abs diff {diff:.3e}; noise floor {floors}; tol "
+          f"{tol:.3e}; argmax agrees at "
+          f"{float((hop.argmax(-1) == ref.argmax(-1)).float().mean()):.4f} "
+          f"of positions; {per_forward} rmsnorm launches a forward")
+    if not bool(torch.isfinite(hop).all()) or diff > tol:
+        raise AssertionError(f"extract {MOE_ARCH}: logits differ by "
+                             f"{diff:.3e} > {tol:.3e} or are non-finite")
+    moe_extract = {c.__name__: c.launches for c in counters}
+    reduced_layers = get_config(MOE_ARCH).reduced().num_layers
+    if moe_extract["rmsnorm"] <= 0 or per_forward != 2 * reduced_layers + 1:
+        raise AssertionError(f"rmsnorm was not launched running {MOE_ARCH}")
+    print(f"launches in phase 14: serving {moe_launches}; extraction "
+          f"{moe_extract}; phase wall {time.perf_counter() - t14:.1f} s")
+    rows["flash_attention"]["launches"] += moe_launches["flash_attention"]
+    rows["rmsnorm"]["launches"] += moe_extract["rmsnorm"]
+    del prog, report, again, ref, hop, fn14, args14
     gc.collect()
     torch.cuda.empty_cache()
 

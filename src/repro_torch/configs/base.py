@@ -6,9 +6,10 @@ package (``configs/<arch>.py``), and :meth:`ModelConfig.reduced`, the tiny
 same-family config the CPU tests and the planner's measurements use.
 
 The registry loads the configs of the architectures the port can build:
-the dense decoder (slice 2) and the two recurrent families, Mamba-1 SSM
-and the RG-LRU / local-attention hybrid (slice 3).  MoE, frontends and
-encoders raise in ``models/lm.py`` with the slice that brings them.
+the dense decoders (slices 2 and 9), the two recurrent families, Mamba-1
+SSM and the RG-LRU / local-attention hybrid (slice 3), and the
+Mixture-of-Experts decoders (slice 9).  Frontends and encoders raise in
+``models/lm.py`` with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -110,6 +111,64 @@ class ModelConfig:
             return [pat[i % len(pat)] for i in range(self.num_layers)]
         return [ATTN] * self.num_layers
 
+    def param_count(self) -> int:
+        """Analytic parameter count, as the JAX package reckons it (the
+        frontend projection and the recurrent blocks' small vectors are
+        left out there too)."""
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * self.d_model
+        out = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        counts = {k: 0 for k in (ATTN, LOCAL_ATTN, RGLRU, SSM)}
+        for k in self.layer_kinds():
+            counts[k] += 1
+        n_attn = counts[ATTN] + counts[LOCAL_ATTN]
+        attn_p = (self.d_model * self.num_heads * hd          # Wq
+                  + 2 * self.d_model * self.num_kv_heads * hd  # Wk, Wv
+                  + self.num_heads * hd * self.d_model)        # Wo
+        if self.qkv_bias:
+            attn_p += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.is_moe:                     # SwiGLU experts + router
+            eff = self.moe_d_ff or self.d_ff
+            ffn_p = self.num_experts * 3 * self.d_model * eff
+            ffn_p += self.d_model * self.num_experts
+            if self.dense_residual_d_ff:
+                ffn_p += 3 * self.d_model * self.dense_residual_d_ff
+        else:
+            ffn_p = 3 * self.d_model * self.d_ff
+        per_layer = ffn_p + 2 * self.d_model                # + two norms
+        total = emb + out + self.d_model                    # + final norm
+        total += n_attn * attn_p + self.num_layers * per_layer
+        if counts[RGLRU]:
+            d_rnn = self.rglru_d_rnn or self.d_model
+            rg_p = (2 * self.d_model * d_rnn
+                    + 2 * d_rnn * (d_rnn // 8 if d_rnn >= 8 else d_rnn)
+                    + d_rnn * self.d_model + 2 * d_rnn)
+            total += counts[RGLRU] * rg_p
+        if counts[SSM]:
+            di, st, dtr = self.d_inner, self.ssm_state, self.resolved_dt_rank
+            ssm_p = (self.d_model * 2 * di + di * self.ssm_conv
+                     + di * (dtr + 2 * st) + dtr * di + di * st + di
+                     + di * self.d_model)
+            total += counts[SSM] * ssm_p
+        if self.encoder_layers:
+            total += self.encoder_layers * (
+                attn_p + 3 * self.d_model * self.d_ff + 2 * self.d_model)
+            if self.cross_attention:
+                total += n_attn * attn_p
+        if self.conv_stem:
+            total += (3 * self.frontend_dim * self.d_model + self.d_model
+                      + 3 * self.d_model * self.d_model + self.d_model)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: only its routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        eff = self.moe_d_ff or self.d_ff
+        per_expert = self.num_layers * 3 * self.d_model * eff
+        return int(self.param_count()
+                   - (self.num_experts - self.experts_per_token) * per_expert)
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU smoke tests."""
@@ -145,12 +204,23 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
-# the architectures the port can build so far; the JAX package's other
-# configs arrive with the slices that port their blocks
+# the architectures the port can build so far, in the JAX registry's
+# order; paligemma-3b and whisper-small arrive with the frontends
 ARCH_IDS = (
     "recurrentgemma-2b",
     "mistral-nemo-12b",
+    "phi3-medium-14b",
+    "qwen2-72b",
+    "deepseek-67b",
+    "kimi-k2-1t-a32b",
+    "arctic-480b",
     "falcon-mamba-7b",
+)
+
+# beyond the JAX package's assigned archs; loaded into the registry all
+# the same
+BONUS_ARCH_IDS = (
+    "mixtral-8x7b",
 )
 
 _REGISTRY: dict[str, ModelConfig] = {}
@@ -172,5 +242,5 @@ def get_config(name: str) -> ModelConfig:
 def _load_all() -> None:
     import importlib
 
-    for arch in ARCH_IDS:
+    for arch in ARCH_IDS + BONUS_ARCH_IDS:
         importlib.import_module("repro_torch.configs." + arch.replace("-", "_"))

@@ -1,0 +1,20 @@
+"""phi3-medium-14b — dense decoder, RoPE + SwiGLU + GQA.
+
+[arXiv:2404.14219; unverified]  40L d_model=5120 40H (GQA kv=10) d_ff=17920
+vocab=100352.
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=10,
+    head_dim=128,
+    d_ff=17_920,
+    vocab_size=100_352,
+    rope_theta=10_000.0,
+    source="arXiv:2404.14219; unverified",
+))

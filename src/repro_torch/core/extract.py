@@ -8,9 +8,10 @@ someone decides which blocks are regions.  This module is the automatic
 version: capture a function as an aten graph, walk it, and statically
 recognize the computational blocks the port's kernel registry knows how
 to offload (``attn_core``, ``mlp_core``, ``ssm_scan``, ``rglru_scan``,
-``fir_bank``, ``rmsnorm``).  Adjacent legal matches are also *stitched*
-into fused regions (``left+right``) the planner prices against their split
-forms, and every near-miss is recorded as a structured :class:`Rejection`.
+``fir_bank``, ``moe_dispatch``, ``rmsnorm``).  Adjacent legal matches are
+also *stitched* into fused regions (``left+right``) the planner prices
+against their split forms, and every near-miss is recorded as a structured
+:class:`Rejection`.
 The result is an :class:`~repro_torch.core.program.OffloadableProgram` that
 flows into the planner and the plan cache unchanged.
 
@@ -31,8 +32,8 @@ enumerator
     sites: loop statements (recognizers read a statement's structure from
     its iteration 0, as the JAX recognizers read a ``scan`` body),
     ``while_loop`` nodes, and ``rsqrt`` (norm), ``silu``/``sigmoid``
-    (gate), ``tanh`` (act), ``convolution`` (conv) and ``topk`` (route)
-    anchors.
+    (gate), ``tanh`` (act), ``convolution`` (conv) and ``topk``/``sort``
+    (route) anchors.
 recognizers
     ``_match_*``: structural matchers from a site to a :class:`RegionMatch`
     — the family, the graph nodes that become the variant's arguments and
@@ -74,8 +75,8 @@ from repro_torch.core.program import OffloadableProgram, Region, meta
 from repro_torch.core.regions import REGISTRY, Impl, dispatch, register_variant
 
 # families this pass can recognize, in recognizer precedence order
-FAMILIES = ("attn_core", "ssm_scan", "rglru_scan", "fir_bank", "mlp_core",
-            "rmsnorm")
+FAMILIES = ("attn_core", "ssm_scan", "rglru_scan", "fir_bank", "moe_dispatch",
+            "mlp_core", "rmsnorm")
 
 # dtypes the registered kernel variants accept (legality gate)
 _FLOAT_OK = ("bfloat16", "float32")
@@ -330,7 +331,7 @@ class CandidateSite:
 
 
 _ANCHORS = {"rsqrt": "norm", "silu": "gate", "sigmoid": "gate", "tanh": "act",
-            "convolution": "conv", "topk": "route"}
+            "convolution": "conv", "topk": "route", "sort": "route"}
 
 
 def enumerate_sites(ctx: _Ctx) -> list[CandidateSite]:
@@ -808,6 +809,156 @@ def _match_swiglu(ctx: _Ctx, gid: int, n) -> Optional[RegionMatch]:
 
 
 # ---------------------------------------------------------------------------
+# Recognizer: capacity-bounded MoE dispatch
+# ---------------------------------------------------------------------------
+# the ops between a router's product and its top-k (softmax, casts, views)
+_ROUTER_CHAIN = ("_softmax", "softmax", "div", "sub", "exp", "amax", "sum",
+                 "_to_copy", "mul", "add", "view", "_unsafe_view", "reshape",
+                 "transpose", "permute", "alias", "clone")
+
+
+def _route_top_k(n):
+    """(scores, k) of a top-k anchor: ``aten.topk``, or a stable descending
+    ``aten.sort`` whose leading k columns are taken (``models/moe.py``'s
+    ``top_k``, JAX's tie-break); else None."""
+    if _op(n) == "topk":
+        return n.args[0], int(n.args[1])
+    if _op(n) != "sort" or not n.kwargs.get("descending", False) \
+            or not n.kwargs.get("stable", False):
+        return None
+    ks = {u2.args[3] for u in n.users if _op(u) == "getitem"
+          for u2 in u.users if _op(u2) == "slice" and u2.args[2] == 0}
+    if len(ks) != 1 or not isinstance(next(iter(ks)), int):
+        return None
+    return n.args[0], int(next(iter(ks)))
+
+
+def _back_to_router_mm(v, limit: int = 16):
+    """Walk back from the routed probabilities through the softmax chain to
+    the router's ``mm``."""
+    for _ in range(limit):
+        if not isinstance(v, fx.Node):
+            return None
+        if _op(v) == "mm":
+            return v
+        if _op(v) not in _ROUTER_CHAIN:
+            return None
+        v = v.args[0]
+    return None
+
+
+def _reach(start, frames) -> set:
+    """Nodes downstream of ``start`` within one loop iteration ``frames``
+    (in an unrolled capture, a layer; the JAX recognizer walks one jaxpr
+    level)."""
+    out, stack = set(), list(start)
+    while stack:
+        v = stack.pop()
+        if v in out or _frames(v) != frames:
+            continue
+        out.add(v)
+        stack.extend(v.users)
+    return out
+
+
+def _consumers(v) -> list:
+    """The first nodes past layout ops that ``v`` feeds."""
+    hits, stack, seen = [], [v], set()
+    while stack:
+        cur = stack.pop()
+        for u in cur.users:
+            if u in seen:
+                continue
+            seen.add(u)
+            if _op(u) in _LAYOUT:
+                stack.append(u)
+            else:
+                hits.append(u)
+    return hits
+
+
+def _match_moe_dispatch(ctx: _Ctx, gid: int, n):
+    """Token-choice top-k routing with a static capacity
+    (``models/moe.py::moe_dispatch_dense`` in aten): a top-k of the
+    softmax of a router ``mm``, three expert ``bmm``s of the SwiGLU shape
+    whose weights are routing-independent [E, ., .] stacks, one dense
+    combine product back to the tokens, and the capacity bound
+    ``lt(queue position, <int literal>)``.  Returns a ``RegionMatch``, a
+    ``Rejection`` for a routed block that cannot be bounded statically,
+    or None when the anchor is not a router's top-k."""
+    top = _route_top_k(n)
+    if top is None:
+        return None
+    scores, k = top
+    router = _back_to_router_mm(scores)
+    if router is None or len(_shape(router.args[1])) != 2:
+        return None                       # not fed by a router product
+    x = _peel(router.args[0], ("_to_copy",))
+    w_router = _peel(router.args[1], ("_to_copy",))
+    num_experts = _shape(w_router)[-1]
+    path = _node_path(ctx, gid, n)
+    g = ctx.graphs[gid]
+
+    def rej(reason):
+        return Rejection("moe_dispatch", path, reason, primitive=_op(n),
+                         node_index=g.index[n])
+
+    frames = _frames(n)
+    routed = _reach([n], frames)
+    from_x = _reach([x], frames)
+    # per-expert FFN: bmms whose lhs is routed data and whose rank-3 rhs
+    # (an [E, D, F] weight stack) depends on neither routing nor tokens
+    expert = [e for e in g.nodes if _op(e) == "bmm" and e in routed
+              and len(_shape(e.args[1])) == 3
+              and _shape(e.args[1])[0] == num_experts
+              and isinstance(e.args[0], fx.Node) and e.args[0] in routed
+              and e.args[1] not in routed and e.args[1] not in from_x]
+    if len(expert) != 3:
+        return rej("routing found but no per-expert FFN "
+                   f"({len(expert)} expert matmuls, expected 3)")
+    # gate -> silu -> (* up) = h -> down
+    silus = {e: [u for u in _consumers(e) if _op(u) == "silu"] for e in expert}
+    gate = [e for e in expert if len(silus[e]) == 1]
+    hs = {u for e in gate for u in _consumers(silus[e][0]) if _op(u) == "mul"}
+    down = [e for e in expert if _peel(e.args[0], _LAYOUT) in hs]
+    up = [e for e in expert if e not in gate and e not in down]
+    if len(gate) != 1 or len(down) != 1 or len(up) != 1:
+        return rej("per-expert FFN is not the swiglu shape "
+                   "(gate/up/down matmuls not identified)")
+    w_gate, w_up, w_down = (_peel(e[0].args[1], _LAYOUT)
+                            for e in (gate, up, down))
+    # combine: the experts' outputs brought back to the tokens by one more
+    # dense product
+    combines = [u for u in _consumers(down[0]) if _op(u) in _MATMUL]
+    if len(combines) != 1:
+        return rej("data-dependent MoE routing (scatter/gather combine) — "
+                   "no dense combine einsum to bound statically")
+    out = _forward(combines[0], _LAYOUT, _shape(x))
+    if out is None:
+        return None
+    users = list(out.users)
+    if len(users) == 1 and _op(users[0]) == "_to_copy" \
+            and _dtype(users[0]) == _dtype(x):
+        out = users[0]
+    invars = (x, w_router, w_gate, w_up, w_down)
+    covered, leaves = _slice_from([out], list(invars))
+    if leaves:
+        return None
+    # capacity bound: each token's queue position compared with a
+    # compile-time int (keep = pos_in_expert < c); without it the routed
+    # block has no static shape and cannot be offloaded
+    caps = [int(c.args[1]) for c in covered if _op(c) == "lt"
+            and isinstance(c.args[1], int) and "int" in _dtype(c.args[0])]
+    if not caps:
+        return rej("data-dependent MoE routing without a capacity bound — "
+                   "token queues have no static size")
+    return RegionMatch("moe_dispatch", gid, path, invars, (out,),
+                       frozenset(covered),
+                       {"num_experts": int(num_experts), "k": k,
+                        "capacity": max(caps)})
+
+
+# ---------------------------------------------------------------------------
 # Legality analyzer
 # ---------------------------------------------------------------------------
 def _mutating(n) -> bool:
@@ -1049,9 +1200,9 @@ def _make_build(ctx: _Ctx, matches: list) -> Callable[[Impl], Program]:
 def _ensure_registry() -> None:
     """Import the modules that register the recognizable kernel families
     (lazy: keeps core import-clean of models/apps)."""
-    for mod in ("repro_torch.models.blocks", "repro_torch.models.ssm",
-                "repro_torch.models.rglru", "repro_torch.kernels.ops",
-                "repro_torch.apps.tdfir"):
+    for mod in ("repro_torch.models.blocks", "repro_torch.models.moe",
+                "repro_torch.models.ssm", "repro_torch.models.rglru",
+                "repro_torch.kernels.ops", "repro_torch.apps.tdfir"):
         importlib.import_module(mod)
 
 
@@ -1061,20 +1212,26 @@ RECOGNIZERS = {
     "ssm_scan": _match_affine_scan,
     "rglru_scan": _match_affine_scan,
     "fir_bank": _match_fir,
+    "moe_dispatch": _match_moe_dispatch,
     "mlp_core": _match_swiglu,
     "rmsnorm": _match_rmsnorm,
 }
 
 
-def _find_matches(ctx: _Ctx) -> list:
-    """Run every recognizer pass; returns the legalized matches.  A node
-    (a loop statement: any of its nodes) covered by an earlier match is
-    not an anchor again."""
+def _find_matches(ctx: _Ctx) -> tuple[list, list]:
+    """Run every recognizer pass; returns ``(matches, rejections)``: the
+    legalized matches and the near-misses recognizers reported themselves.
+    A node (a loop statement: any of its nodes) covered by an earlier match
+    is not an anchor again."""
     matches: list[RegionMatch] = []
+    rejections: list[Rejection] = []
     claimed: dict[int, set] = {}
 
     def admit(m):
         if m is None:
+            return
+        if isinstance(m, Rejection):
+            rejections.append(m)
             return
         used = claimed.setdefault(m.graph_id, set())
         if m.covered & used:
@@ -1087,14 +1244,15 @@ def _find_matches(ctx: _Ctx) -> list:
             for stmt, nodes in ctx.graphs[gid].stmt_nodes.items():
                 if not set(nodes) & claimed.get(gid, set()):
                     admit(matcher(ctx, gid, stmt))
-    for prim, matcher in (("while_loop", _match_affine_while),
-                          ("silu", _match_swiglu),
-                          ("rsqrt", _match_rmsnorm)):
+    for prims, matcher in ((("while_loop",), _match_affine_while),
+                           (("topk", "sort"), _match_moe_dispatch),
+                           (("silu",), _match_swiglu),
+                           (("rsqrt",), _match_rmsnorm)):
         for gid in ctx.order:
             for n in ctx.graphs[gid].nodes:
-                if _op(n) == prim and n not in claimed.get(gid, set()):
+                if _op(n) in prims and n not in claimed.get(gid, set()):
                     admit(matcher(ctx, gid, n))
-    return [_legalize(ctx, m) for m in matches]
+    return [_legalize(ctx, m) for m in matches], rejections
 
 
 # ---------------------------------------------------------------------------
@@ -1197,10 +1355,10 @@ def extract(fn: Callable, args: tuple, *, name: str = "program"
     report.sites = enumerate_sites(ctx)
     report.loop_count = len(ctx.census()) + sum(
         1 for s in report.sites if s.kind == "while")
-    matches = _find_matches(ctx)
+    matches, rrejs = _find_matches(ctx)
     stitched, srejs = _stitch(ctx, matches)
     report.matches = matches + stitched
-    report.rejections = srejs + [
+    report.rejections = rrejs + srejs + [
         Rejection(m.family, m.path, m.reason, stage="legality")
         for m in matches if not m.legal]
     report.graph_module = gm

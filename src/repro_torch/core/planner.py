@@ -37,6 +37,7 @@ Defaults a=5, c=3, d=4 match the paper's evaluation conditions (§5.1.2).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 
@@ -393,10 +394,14 @@ class AutoOffloader:
                             backend=backend)
 
         # ---- Step 2: arithmetic-intensity filter ----------------------
+        # with the region's compile-time knobs, as Step 3 lowers it (the
+        # JAX planner leaves them out, and cannot analyse a region whose
+        # ref requires them, such as moe_dispatch's capacity)
         cands = [CandidateInfo(region=r.name,
                                analysis=analyze_region(
-                                   r.analysis_fn, *r.analysis_args,
-                                   name=r.name))
+                                   functools.partial(r.analysis_fn,
+                                                     **r.static_kwargs),
+                                   *r.analysis_args, name=r.name))
                  for r in program.regions]
         report.candidates = cands
         by_ai = sorted(cands, key=lambda c: -c.analysis.arithmetic_intensity)

@@ -5,18 +5,19 @@ Three sections:
 
 1. accuracy — ``core/extract.py`` scored against the hand-annotated
    programs: the families ``make_lm_program(arch)`` registers by hand on
-   mistral-nemo-12b, falcon-mamba-7b and recurrentgemma-2b (plus
-   ``rmsnorm``, which every LM arch contains), and tdFIR's ``fir_bank``,
-   are the ground truth.  The recognizers must reach 0.9 precision AND 0.9
-   recall micro-averaged and **per family** over the six families, and
+   mistral-nemo-12b, falcon-mamba-7b, recurrentgemma-2b and mixtral-8x7b
+   (plus ``rmsnorm``, which every LM arch contains), and tdFIR's
+   ``fir_bank``, are the ground truth.  The recognizers must reach 0.9
+   precision AND 0.9 recall micro-averaged and **per family** over the
+   seven families, and
    each family must have a ground-truth case.  The archs are captured on
    fake tensors: without ``--reduced`` at full width and full depth, which
    allocates nothing.  Stitched ``left+right`` regions sit outside the
    scored universe (they are derived, not annotated).
-2. autoplan — ``discover`` + ``AutoOffloader.plan`` on the three archs'
+2. autoplan — ``discover`` + ``AutoOffloader.plan`` on the four archs'
    reduced all-ref forwards (random weights from a seeded generator), with
-   nobody's annotations: >= 2 regions each, and the re-plan must hit the
-   plan cache.
+   nobody's annotations: >= 2 regions each, the re-plan must hit the plan
+   cache, and mixtral's routed block must be a ``moe_dispatch`` region.
 3. stitch — Mistral-NeMo's fused ``rmsnorm+mlp_core`` region planned
    against its split halves: the fused region is measured first-class and
    its presence re-keys the plan cache.
@@ -49,7 +50,8 @@ from repro_torch.models.offload_program import make_lm_program
 from repro_torch.models.params import DTYPES, tree_map
 
 UNIVERSE = frozenset(FAMILIES)
-ARCHS = ("mistral-nemo-12b", "falcon-mamba-7b", "recurrentgemma-2b")
+ARCHS = ("mistral-nemo-12b", "falcon-mamba-7b", "recurrentgemma-2b",
+         "mixtral-8x7b")
 SEQ = 32
 TDFIR_SMALL = TdFirConfig(n_banks=4, n_taps=16, n_samples=256)
 
@@ -268,6 +270,11 @@ def main(argv=None) -> dict:
             raise AssertionError(f"{r['app']}: {r['regions']} discovered "
                                  f"regions (want >= 2), re-plan from the "
                                  f"cache: {r['cached_replan']}")
+    # the MoE arch must auto-plan with its routed block as a region
+    moe_row = next(r for r in plan_rows if r["app"] == "mixtral-8x7b")
+    if "moe_dispatch" not in moe_row["families"].split(","):
+        raise AssertionError("mixtral auto-plan lost moe_dispatch: "
+                             f"{moe_row['families']}")
 
     stitch_row = run_stitch_demo(dev, reps=a.reps)
     print(f"stitch: fused={stitch_row['fused_regions']} "

@@ -5,6 +5,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \\
       [--reduced] [--auto-offload] [--device cpu]
 
+``--arch`` takes every arch of the port's registry (``configs/base.py``:
+the dense, MoE, SSM and hybrid decoders); those larger than one card
+(the MoE archs, qwen2-72b, deepseek-67b) run there only ``--reduced``.
+
 With ``--auto-offload`` the launcher runs the block-level offload planner
 (``models/offload_program.py``) first, against the plan cache
 (``--plan-cache``), and serves with the selected pattern; only the first

@@ -1,7 +1,8 @@
 """Per-layer block templates and apply functions — the port of the JAX
 package's ``models/blocks.py`` for decoders: attention (full and
-sliding-window, GQA), the SwiGLU MLP, the Mamba-1 SSM block and the RG-LRU
-block.
+sliding-window, GQA), the SwiGLU MLP, the Mixture-of-Experts FFN (with
+arctic's parallel dense residual MLP), the Mamba-1 SSM block and the
+RG-LRU block.
 
 Each block kind provides ``<kind>_template(cfg)`` (a ParamSpec tree, one
 layer, unstacked), ``<kind>_apply`` (full sequence) and, for the kinds
@@ -10,8 +11,8 @@ with a cache, ``<kind>_decode`` (one token against the cache) and
 it.  Blocks route their hot loops through
 :func:`repro_torch.core.regions.dispatch`, so the planner can swap
 implementations.  The JAX sharding constraints have no counterpart on one
-card; the MoE, gelu-MLP and conv-stem blocks come with the slices that
-port MoE and the frontends.
+card; the gelu-MLP and conv-stem blocks come with the slice that ports
+the frontends.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regions import dispatch, register_variant
 from repro_torch.kernels import ops as _ops  # noqa: F401 (registers hopper)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as _moe  # noqa: F401 (registers moe_*)
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SS
 from repro_torch.models.params import spec
@@ -205,6 +207,46 @@ def mlp_template(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 def mlp_apply(p, x, *, cfg: ModelConfig, impl=None):
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     out = dispatch("mlp_core", impl, h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE block
+# ---------------------------------------------------------------------------
+def moe_template(cfg: ModelConfig) -> dict:
+    d, e = cfg.d_model, cfg.num_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    t = {
+        "ln": spec([d], ("embed",), "zeros"),
+        "router": spec([d, e], ("embed", "experts")),
+        "w_gate": spec([e, d, f], ("experts", "embed", "expert_mlp")),
+        "w_up": spec([e, d, f], ("experts", "embed", "expert_mlp")),
+        "w_down": spec([e, f, d], ("experts", "expert_mlp", "embed"),
+                       "scaled"),
+    }
+    if cfg.dense_residual_d_ff:
+        t["dense"] = {k: v for k, v in
+                      mlp_template(cfg, d_ff=cfg.dense_residual_d_ff).items()
+                      if k != "ln"}
+    return t
+
+
+def moe_apply(p, x, *, cfg: ModelConfig, impl=None):
+    """Pre-norm MoE FFN over the flattened [B*S, D] tokens (every token of
+    the batch, padding included, competes for the experts' capacity), plus
+    the parallel dense residual MLP where the config has one."""
+    b, s, d = x.shape
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    moe_out = dispatch("moe_ffn", impl, h.reshape(b * s, d),
+                       {k: p[k] for k in ("router", "w_gate", "w_up",
+                                          "w_down")},
+                       num_experts=cfg.num_experts, k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor, inner_impl=impl)
+    out = moe_out.reshape(b, s, d)
+    if "dense" in p:
+        dp = p["dense"]
+        out = out + L.swiglu(h, dp["w_gate"], dp["w_up"],
+                             dp["w_down"]).to(x.dtype)
     return x + out.to(x.dtype)
 
 

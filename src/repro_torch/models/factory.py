@@ -20,10 +20,15 @@ from repro_torch.models import params as P
 # Default impl (offload pattern) per config
 # ---------------------------------------------------------------------------
 def default_impl(cfg: ModelConfig) -> Impl:
-    """Architectural defaults (NOT planner decisions): SSM archs use the
-    time-sequential chunked scan, as in the JAX package.  (Its MoE default,
-    ``moe_ffn="offload"``, arrives with the MoE block.)"""
+    """Architectural defaults (NOT planner decisions), as in the JAX
+    package: MoE configs use the group-local expert-choice dispatch
+    (``moe_ffn="offload"``; the token-choice one-hot path materializes a
+    [T, E, C] tensor and is selected explicitly with
+    ``Impl({"moe_ffn": "ref"})``); SSM archs use the time-sequential
+    chunked scan."""
     imp = Impl()
+    if cfg.is_moe:
+        imp["moe_ffn"] = "offload"
     if cfg.family == "ssm":
         imp["ssm_scan"] = "seq"
     return imp

@@ -1,6 +1,7 @@
 """Model assembly: templates, full-sequence forward, prefill, decode — the
 port of the JAX package's ``models/lm.py`` for decoders of attention, SSM
-and RG-LRU layers.
+and RG-LRU layers, whose attention layers may carry a Mixture-of-Experts
+FFN.
 
 Per-layer parameters are stacked along a leading ``layers`` axis, as in the
 JAX tree (so the two packages' trees convert leaf for leaf, see
@@ -38,10 +39,6 @@ def _check_kind(kind: str) -> None:
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (the slice that "
-            "ports models/moe.py and its moe_dispatch region brings them)")
     if cfg.frontend != "none" or cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: frontends and encoders are not ported yet (the "
@@ -79,7 +76,8 @@ def layer_template(cfg: ModelConfig, kind: str) -> dict:
     else:
         t = {"attn": B.attn_template(cfg)}
     if cfg.d_ff:
-        t["ffn"] = B.mlp_template(cfg)
+        t["ffn"] = (B.moe_template(cfg) if _moe_layer(cfg, kind)
+                    else B.mlp_template(cfg))
     return t
 
 
@@ -141,6 +139,18 @@ def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.attn_window if kind == LOCAL_ATTN else 0
 
 
+def _moe_layer(cfg: ModelConfig, kind: str) -> bool:
+    """MoE configs route the FFN of their attention layers (JAX: the
+    recurrent kinds keep a dense MLP)."""
+    return cfg.is_moe and kind in (ATTN, LOCAL_ATTN)
+
+
+def _ffn(p, x, *, cfg: ModelConfig, kind: str, impl):
+    if _moe_layer(cfg, kind):
+        return B.moe_apply(p["ffn"], x, cfg=cfg, impl=impl)
+    return B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
+
+
 # ---------------------------------------------------------------------------
 # Unit application (one pattern repetition)
 # ---------------------------------------------------------------------------
@@ -156,7 +166,7 @@ def _apply_unit_seq(unit_params, x, *, cfg, kinds, positions, impl):
                              impl=impl, causal=True,
                              window=_window(cfg, kind))
         if cfg.d_ff:
-            x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
+            x = _ffn(p, x, cfg=cfg, kind=kind, impl=impl)
     return x
 
 
@@ -186,7 +196,7 @@ def _apply_unit_seq_exact(unit_params, unit_cache, x, *, cfg, kinds,
         for name, dst in dsts.items():
             dst.copy_(c[name])
         if cfg.d_ff:
-            x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
+            x = _ffn(p, x, cfg=cfg, kind=kind, impl=impl)
     return x
 
 
@@ -201,7 +211,7 @@ def _apply_unit_decode(unit_params, unit_cache, x, *, cfg, kinds, pos, impl):
             x, _ = B.attn_decode(p["attn"], x, c["attn"], cfg=cfg, pos=pos,
                                  window=_window(cfg, kind))
         if cfg.d_ff:
-            x = B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
+            x = _ffn(p, x, cfg=cfg, kind=kind, impl=impl)
     return x
 
 

@@ -1,11 +1,12 @@
 """Block-level OffloadableProgram over an LM architecture — the port of the
-JAX package's ``models/offload_program.py`` for the dense, SSM and hybrid
-decoders.
+JAX package's ``models/offload_program.py`` for the dense, MoE, SSM and
+hybrid decoders.
 
 The planner plans over the model's block-level regions (``attn_core``,
-``mlp_core``, ``ssm_scan``, ``rglru_scan``), whose ref/offload/hopper
-variants are the ones the model dispatches through, so the selected
-pattern IS the model's deploy configuration.  As in the JAX package, the regions' analysis arguments
+``moe_dispatch`` or ``mlp_core``, ``ssm_scan``, ``rglru_scan``), whose
+ref/offload/hopper variants are the ones the model dispatches through, so
+the selected pattern IS the model's deploy configuration.  As in the JAX
+package, the regions' analysis arguments
 are the FULL architecture's per-layer tensors (meta tensors, s = 4096),
 while Step 4 measures ``forward`` on ``cfg.reduced()`` at ``batch`` x
 ``seq`` — so the measured speedups are those of the reduced model.
@@ -19,6 +20,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.program import OffloadableProgram, Region, meta
 from repro_torch.core.regions import Impl, variants
 from repro_torch.models import factory as F
+from repro_torch.models.moe import moe_capacity
 from repro_torch.models.params import tree_map
 
 ANALYSIS_SEQ = 4096      # the sequence length the regions are analysed at
@@ -64,7 +66,24 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
         kv = meta((1, max(full.num_kv_heads, 1), ANALYSIS_SEQ, hd), bf16)
         regions.append(Region("attn_core", variants("attn_core")["ref"],
                               (q, kv, kv)))
-    if full.d_ff:
+    if full.is_moe:
+        # the routed expert MLP is a moe_dispatch block (top-k gate and
+        # capacity-bounded one-hot routing), not an mlp_core.  As in JAX,
+        # the measured forward merges default_impl's moe_ffn=offload
+        # (expert choice), which never reaches moe_dispatch
+        e, f = full.num_experts, full.moe_d_ff or full.d_ff
+        cap = moe_capacity(ANALYSIS_SEQ, e, full.experts_per_token,
+                           full.capacity_factor)
+        x = meta((ANALYSIS_SEQ, full.d_model), bf16)
+        wr = meta((full.d_model, e), bf16)
+        we = meta((e, full.d_model, f), bf16)
+        wd = meta((e, f, full.d_model), bf16)
+        regions.append(Region("moe_dispatch", variants("moe_dispatch")["ref"],
+                              (x, wr, we, we, wd),
+                              static_kwargs={"num_experts": e,
+                                             "k": full.experts_per_token,
+                                             "capacity": cap}))
+    elif full.d_ff:
         x = meta((ANALYSIS_SEQ, full.d_model), bf16)
         wg = meta((full.d_model, full.d_ff), bf16)
         wd = meta((full.d_ff, full.d_model), bf16)

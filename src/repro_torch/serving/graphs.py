@@ -22,7 +22,9 @@ On a card, construction
    capture that fails raises: there is no eager fallback.  A host sync
    anywhere in the step (``.item()``, ``int()`` of a tensor, ``.cpu()``, a
    Python branch on a tensor value) fails the capture, so the capture is
-   the check that the step has none.
+   the check that the step has none.  Garbage collection is held off
+   during a capture: collecting an unreachable graph destroys it, which a
+   capture in progress does not survive.
 
 A call copies the host inputs into pinned staging buffers, from there into
 the static buffers (``non_blocking``), replays the graph and returns its
@@ -55,6 +57,7 @@ neither is lost.
 """
 from __future__ import annotations
 
+import gc
 import threading
 
 import numpy as np
@@ -131,6 +134,13 @@ class StepGraph(EagerStep):
             counters = launch_counters()
             graph = torch.cuda.CUDAGraph()
             with _CAPTURE_LOCK:
+                # no garbage collection inside a capture: a collected
+                # graph's destructor (cudaGraphExecDestroy) invalidates it.
+                # Collect first, as torch.cuda.graph does, then hold off
+                # collection until the capture has ended
+                gc.collect()
+                collecting = gc.isenabled()
+                gc.disable()
                 with _COUNT_LOCK:
                     _capturing[0] = True
                     before = [c.launches for c in counters]
@@ -143,6 +153,8 @@ class StepGraph(EagerStep):
                         finally:
                             graph.capture_end()
                 finally:
+                    if collecting:
+                        gc.enable()
                     with _COUNT_LOCK:
                         self.deltas = [(c, c.launches - b)
                                        for c, b in zip(counters, before)

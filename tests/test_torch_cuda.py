@@ -472,7 +472,8 @@ def test_discovered_mistral_rmsnorm_hopper_on_cuda(cuda_device):
 GRAPH_HOPPER = {"mistral-nemo-12b": {"attn_core": "hopper"},
                 "falcon-mamba-7b": {"ssm_scan": "hopper"},
                 "recurrentgemma-2b": {"rglru_scan": "hopper",
-                                      "attn_core": "hopper"}}
+                                      "attn_core": "hopper"},
+                "mixtral-8x7b": {"attn_core": "hopper"}}
 GRAPH_CTX = 32
 
 
@@ -687,6 +688,84 @@ def test_graph_engine_serves_the_eager_twins_streams_on_cuda(cuda_device,
         assert rounds[0] == rounds[1]
         runs.append(rounds[0])
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the MoE layer on the card (no kernel of its own: bmm, sort,
+# gather and scatter)
+# ---------------------------------------------------------------------------
+def _moe_weights(device, t, d, f, e, seed, w_scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape, fan_in):
+        return (torch.randn(shape, generator=g, device=device)
+                * (w_scale / fan_in ** 0.5)).to(torch.bfloat16)
+
+    x = normal(t, d, fan_in=1)
+    return x, {"router": normal(d, e, fan_in=d),
+               "w_gate": normal(e, d, f, fan_in=d),
+               "w_up": normal(e, d, f, fan_in=d),
+               "w_down": normal(e, f, d, fan_in=f)}
+
+
+@pytest.mark.cuda
+def test_expert_choice_combine_is_bit_identical_across_replays_on_cuda(
+        cuda_device):
+    """The expert-choice combine adds the experts' outputs one expert at a
+    time, without atomics: two eager calls, two CUDA-graph replays (outputs
+    poisoned before each) and the eager call agree bit for bit, with every
+    token picked by several experts (capacity 640 of 2,048 tokens)."""
+    from repro_torch.models import moe as M
+    x, p = _moe_weights(cuda_device, 2048, 512, 1024, 8, seed=1)
+    kw = {"num_experts": 8, "k": 2, "capacity_factor": 1.25}
+    want = M.moe_expert_choice(x, p, **kw)
+    assert torch.equal(M.moe_expert_choice(x, p, **kw), want)
+    xin = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        M.moe_expert_choice(xin, p, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = M.moe_expert_choice(xin, p, **kw)
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    picks = M.top_k(M.router_probs(x, p["router"]).t(), 640)[1]
+    assert int(torch.bincount(picks.flatten(), minlength=2048).max()) > 1
+    del graph
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_ref_matches_offload_at_full_width_on_cuda(cuda_device):
+    """One mixtral-8x7b layer's routed block at a prefill of 2,048 tokens
+    (capacity 640; expert 0 favoured, so tokens drop): the dense one-hot
+    dispatch and the scatter slots are the same token-choice routing; they
+    differ only
+    in where the combine rounds to bf16 (tolerance 2e-2, the bf16
+    tolerance of tests/test_kernels.py, on outputs of unit scale)."""
+    from repro_torch.core.regions import variants
+    from repro_torch.models import moe as M
+    x, p = _moe_weights(cuda_device, 2048, 4096, 14336, 8, seed=2)
+    # favour expert 0 for every token, so that its queue overflows
+    x[:, 0] = x[:, 0].abs() + 1
+    p["router"][0, 0] = 1
+    cap = M.moe_capacity(2048, 8, 2, 1.25)
+    assert cap == 640
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    kw = {"num_experts": 8, "k": 2, "capacity": cap}
+    ref = variants("moe_dispatch")["ref"](*args, **kw)
+    off = variants("moe_dispatch")["offload"](*args, **kw)
+    assert ref.dtype == off.dtype == torch.bfloat16
+    assert bool(torch.isfinite(ref).all())
+    torch.testing.assert_close(off.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    _, _, _, _, keep = M.route_tokens(x, p["router"], 8, 2, cap)
+    assert not bool(keep.all())                  # the capacity binds
+    dropped = ~keep.any(-1)
+    assert bool((ref[dropped] == 0).all()) and bool((off[dropped] == 0).all())
 
 
 # ---------------------------------------------------------------------------

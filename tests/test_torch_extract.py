@@ -8,9 +8,9 @@ cond), the binder's fidelity under variant substitution, stitching, the
 plan-cache keys, and ``rmsnorm``'s plain version against the JAX kernel.
 
 The JAX extractor misses ``mlp_core`` under jax 0.9.0 (its wrapper
-primitive is named ``jit``, not ``pjit``) and ``fir_bank`` on tdFIR; the
-port is held to the JAX code's stated intent, the ``COVERAGE`` table of
-``tests/test_extract.py``, not to those misses.
+primitive is named ``jit``, not ``pjit``), ``fir_bank`` on tdFIR and
+``moe_dispatch``; the port is held to the JAX code's stated intent, the
+``COVERAGE`` table of ``tests/test_extract.py``, not to those misses.
 
 Tolerances: a rebuilt program against the program it was captured from,
 exact (1e-6 for tdFIR's complex pipeline); the rebuilt float32 models
@@ -55,6 +55,7 @@ from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels.ref import rmsnorm_plain
 from repro_torch.models import factory as F
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.offload_program import make_lm_program
 from repro_torch.models.ssm import associative_scan
@@ -78,6 +79,9 @@ COVERAGE = {
     "fir_bank": {
         "positive": ["test_fir_bank_rediscovered"],
         "negative": ["test_fir_while_trip_count_rejected"]},
+    "moe_dispatch": {
+        "positive": ["test_torch_moe_dispatch_rediscovered"],
+        "negative": ["test_torch_moe_unbounded_routing_rejected"]},
     "rmsnorm": {
         "positive": ["test_rmsnorm_rediscovered"],
         "negative": ["test_rmsnorm_f16_rejected_by_dtype_gate"]},
@@ -714,3 +718,133 @@ def test_region_call_pins_the_recorded_output_type():
     spec = ((2, 3), torch.bfloat16)
     got = E._coerce(torch.zeros(6), spec)
     assert tuple(got.shape) == (2, 3) and got.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch: the capacity-bounded routed block
+# ---------------------------------------------------------------------------
+def _moe_args(dtype=torch.bfloat16):
+    rng = np.random.default_rng(2)
+    shapes = ((32, 16), (16, 4), (4, 16, 32), (4, 16, 32), (4, 32, 16))
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                 .to(dtype) for sh in shapes)
+
+
+def _moe_dense(x, wr, wg, wu, wd):
+    return MOE.moe_dispatch_dense(x, wr, wg, wu, wd, num_experts=4, k=2,
+                                  capacity=8)
+
+
+def test_torch_moe_dispatch_rediscovered():
+    """The intent of JAX's ``test_moe_dispatch_rediscovered``: the dense
+    dispatch with its static kwargs, standalone and in each layer of the
+    reduced mixtral-8x7b (whose routed FFN is no ``mlp_core``), and the
+    rebuilt program with the scatter-slot variant substituted."""
+    args = _moe_args()
+    report = E.extract(_moe_dense, args, name="moe")
+    hits = _legal(report, "moe_dispatch")
+    assert len(hits) == 1, report.summary()
+    assert hits[0].static_kwargs == {"num_experts": 4, "k": 2, "capacity": 8}
+    assert hits[0].arg_shapes() == ["bfloat16[32, 16]", "bfloat16[16, 4]",
+                                    "bfloat16[4, 16, 32]",
+                                    "bfloat16[4, 16, 32]",
+                                    "bfloat16[4, 32, 16]"]
+    assert [s.kind for s in report.sites] == ["route", "gate"]
+
+    tcfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                               dtype="float32")
+    jparams = JF.init_params(dataclasses.replace(
+        jax_get_config("mixtral-8x7b").reduced(), dtype="float32"),
+        jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    targs = (torch.from_numpy(_tokens(tcfg.vocab_size)),)
+
+    def run(t, impl):
+        return F.make_forward(tcfg, impl)(tparams, {"tokens": t})
+
+    def tfn(t):
+        return run(t, Impl())
+
+    prog = E.discover(tfn, targs, name="mixtral")
+    found = prog.extraction
+    moe = _legal(found, "moe_dispatch")
+    assert len(moe) == tcfg.num_layers, found.summary()
+    assert {r.name for r in prog.regions} == {"attn_core", "moe_dispatch",
+                                              "rmsnorm"}
+    cap = MOE.moe_capacity(SEQ, tcfg.num_experts, tcfg.experts_per_token,
+                           tcfg.capacity_factor)
+    assert all(m.static_kwargs == {"num_experts": tcfg.num_experts,
+                                   "k": tcfg.experts_per_token,
+                                   "capacity": cap} for m in moe)
+    ref = tfn(*targs)
+    torch.testing.assert_close(prog.build(Impl())(*targs), ref, rtol=0,
+                               atol=0)
+    pattern = Impl({"moe_dispatch": "offload"})
+    slots = prog.build(pattern)
+    assert _region_calls(slots) == tcfg.num_layers
+    # the substituted program is the model run under the same pattern
+    sub = slots(*targs)
+    torch.testing.assert_close(sub, run(*targs, pattern), rtol=0, atol=0)
+    # and exact token-choice routing as ref is: their float32 rounding
+    # differs, which a router's bf16 input may carry into a gate
+    scale = float(ref.abs().max())
+    assert float((sub - ref).abs().max()) / scale < SUB_RTOL
+
+
+def test_torch_moe_unbounded_routing_rejected():
+    """The intent of JAX's
+    ``test_moe_unbounded_routing_rejected_with_diagnostic``: token-choice
+    routing with no capacity bound is data-dependent (every routed token
+    flows to its expert, so a queue has no static size); the recognizer
+    walks the whole block and rejects it at the capacity gate."""
+    def unbounded(x, wr, wg, wu, wd):
+        probs = torch.softmax((x @ wr).float(), dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, 2)
+        disp = (gate_idx[..., None] == torch.arange(4)).to(x.dtype)  # [T,k,E]
+        comb = (disp * gate_vals[..., None].to(x.dtype)).sum(1)
+        xe = torch.einsum("te,td->etd", disp.sum(1), x)           # no capacity
+        h = Fn.silu(torch.einsum("etd,edf->etf", xe, wg)) * torch.einsum(
+            "etd,edf->etf", xe, wu)
+        ye = torch.einsum("etf,efd->etd", h, wd)
+        return torch.einsum("etd,te->td", ye, comb)
+
+    report = E.extract(unbounded, _moe_args(), name="moe_unbounded")
+    assert not [m for m in report.matches if m.family == "moe_dispatch"]
+    rejs = [r for r in report.rejections if r.family == "moe_dispatch"]
+    assert rejs, report.summary()
+    assert rejs[0].stage == "recognizer"
+    assert rejs[0].primitive == "topk"
+    assert "data-dependent" in rejs[0].reason
+    assert "capacity" in rejs[0].reason
+    assert rejs[0].reason in report.summary()
+
+
+@pytest.mark.parametrize("which", ["slots", "expert_choice"])
+def test_moe_scatter_combine_rejected(which):
+    """A routed block that brings the experts' outputs back by a gather or
+    a scatter (the slot dispatch, expert choice) has no dense combine
+    product to bound: a recognizer rejection, no match."""
+    def slots(x, wr, wg, wu, wd):
+        return MOE.moe_dispatch_slots(x, wr, wg, wu, wd, num_experts=4, k=2,
+                                      capacity=8)
+
+    def expert_choice(x, wr, wg, wu, wd):
+        return MOE.moe_expert_choice(
+            x, {"router": wr, "w_gate": wg, "w_up": wu, "w_down": wd},
+            num_experts=4, k=2, capacity_factor=1.25)
+
+    fn = {"slots": slots, "expert_choice": expert_choice}[which]
+    report = E.extract(fn, _moe_args(), name=which)
+    assert not [m for m in report.matches if m.family == "moe_dispatch"]
+    rejs = [r for r in report.rejections if r.family == "moe_dispatch"]
+    assert len(rejs) == 1 and rejs[0].primitive == "sort", report.summary()
+    assert "scatter/gather combine" in rejs[0].reason
+
+
+def test_top_k_not_fed_by_a_router_is_no_site_of_moe():
+    """A sort or top-k of anything but a router's softmax is left alone:
+    no match and no rejection."""
+    x = torch.zeros(16, 8)
+    report = E.extract(lambda t: torch.topk(t.exp(), 2).values.sum()
+                       + MOE.top_k(t, 3)[0].sum(), (x,), name="topk")
+    assert not report.matches and not report.rejections

@@ -106,13 +106,16 @@ def test_config_and_templates_mirror_jax():
 
 
 def test_layer_kinds_other_than_attention_raise():
-    """The SSM and RG-LRU kinds are ported (tests/test_torch_recurrent.py);
-    MoE layers, frontends and encoders still raise, naming the slice that
-    brings them, and an unknown kind is refused."""
+    """The SSM and RG-LRU kinds are ported (tests/test_torch_recurrent.py),
+    and so are MoE layers (tests/test_torch_moe.py): an MoE config builds,
+    its attention layers' FFN routed over the experts.  Frontends and
+    encoders still raise, naming the slice that brings them, and an
+    unknown kind is refused."""
     base = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="moe_dispatch"):
-        lm.model_template(dataclasses.replace(base, num_experts=4,
-                                              experts_per_token=2))
+    moe = lm.model_template(dataclasses.replace(base, num_experts=4,
+                                                experts_per_token=2))
+    assert moe["stack"]["l0"]["ffn"]["w_gate"].shape == (2, 4, 64, 128)
+    assert moe["stack"]["l0"]["ffn"]["router"].shape == (2, 64, 4)
     for over in ({"frontend": "siglip_stub", "frontend_seq": 4,
                   "frontend_dim": 64},
                  {"encoder_layers": 2, "cross_attention": True}):

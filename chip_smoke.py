@@ -12,9 +12,12 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build   — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel).
 3. kernels — holds each kernel against its plain PyTorch version on the
-   card, with the stated tolerance, at every shape phases 4 to 9 give it
+   card, with the stated tolerance, at every shape phases 4 to 16 give it
    (the paper's full sizes, MRI-Q's bench size, the six prefill buckets,
-   the planners' reduced models) and at one shape off the kernel's grain
+   the planners' reduced models, paligemma's three causal S = 256 +
+   bucket and, row 3w, whisper's bidirectional encoder attention at [1,
+   12/12, 1,500, 64], timed beside SDPA) and at one shape off the kernel's
+   grain
    (FIR: N=4000, where the default block_n 512 is clamped to 500; MRI-Q:
    300 x 200, ragged in both loops; the scans: S=9 and D=300, no multiple
    of a tile; rmsnorm: 9 rows of D=300, off the 16-byte grain); times
@@ -151,10 +154,35 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``MOE_TOL``.  Then the unannotated reduced
    model is discovered (``moe_dispatch`` must be found), planned, and run
    with ``rmsnorm=hopper``, its logits held against the captured
-   program's; ``rmsnorm`` must launch.  Phases 6, 8, 9 and 14 print the
-   decode step's device time beside its weight-streaming bound (every
-   weight but the embedding table, and the whole cache, read once at
-   3.35 TB/s; an MoE step reads every expert).
+   program's; ``rmsnorm`` must launch.
+15. serve whisper-small — the slice-10 main path, the audio frontend:
+   plans ``make_lm_program("whisper-small")`` (regions ``attn_core``,
+   ``mlp_gelu``, ``conv_stem``; a pattern with ``attn_core=hopper`` must
+   fail, its cross-attention having s != sk, and must not be selected),
+   builds the model at full width and depth (12 + 12 layers, d_model 768,
+   12 heads of 64, vocab 51,865, a two-layer conv stem over 3,000 mel
+   frames of 80 bins) and serves 3 greedy requests (prompts 5 / 60 / 200,
+   buckets 8 / 64 / 256, each with its own frames; 4 slots at ctx 512) as
+   phase 6 does, over the planned pattern (the encoder runs inside each
+   prefill graph).  Then ``lm.encode`` at full width under
+   ``attn_core=hopper`` against ref: 12 bidirectional ``flash_attention``
+   launches; and a reduced whisper prefill under ``attn_core=hopper`` must
+   raise the wrapper's s != sk error with no plain version run.
+16. serve paligemma-3b — the slice-10 main path, the SigLIP-stub prefix:
+   plans ``make_lm_program("paligemma-3b")``, builds it at full width and
+   depth (18 layers, d_model 2,048, 8/1 heads of 256, d_ff 16,384, vocab
+   257,216) and serves 3 requests (prompts 9 / 300 / 1,500, each behind
+   its 256 patch embeddings: buckets 16 / 512 / 1,824 under the cap ctx -
+   256, attention over 272 / 768 / 2,080 positions; 4 slots at ctx 2,080)
+   as phase 6 does, with ``attn_core=hopper`` over the planned pattern;
+   ``flash_attention`` must launch.
+
+Phases 6, 8, 9, 14, 15 and 16 print the decode step's device time beside
+its weight-streaming bound: every weight the step reads and the whole
+cache, once, at 3.35 TB/s (an untied embedding table gives 4 rows and is
+left out, a tied one is read whole as the unembedding; a frontend's
+projection, stem and encoder run at prefill only; an MoE step reads every
+expert).
 
 Every launch counter is set to 0 just before the path it belongs to runs
 and read just after it; the comparisons of phase 3 do not count.  A graph
@@ -230,6 +258,20 @@ REGION_KERNEL = {"attn_core": "flash_attention", "ssm_scan": "ssm_scan",
 LOGIT_NOISE_FACTOR = 3.0
 LOGIT_TOL_MIN = 0.05
 EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
+# phase 15: whisper-small at full width and depth, 4 slots at ctx 512; its
+# encoder attends over 1,500 positions in 12 heads of width 64
+WHISPER_ARCH = "whisper-small"
+WHISPER_CTX = 512
+WHISPER_PROMPTS = (5, 60, 200)
+WHISPER_BUCKETS = (8, 64, 256)
+WHISPER_HEADS, WHISPER_ENC_SEQ, WHISPER_HEAD_DIM = 12, 1500, 64
+# phase 16: paligemma-3b at full width and depth, 4 slots at ctx 2,080;
+# each prompt behind its 256 patch embeddings, the bucket capped at
+# ctx - 256 = 1,824, so attention runs over 256 + bucket positions
+PALI_ARCH = "paligemma-3b"
+PALI_PROMPTS = (9, 300, 1500)
+PALI_BUCKETS = (16, 512, 1824)
+PALI_SEQS = tuple(256 + b for b in PALI_BUCKETS)
 # phase 13's scripted drift: ticks of bucket-128 prompts, then of two
 # bucket-2,048 prompts a tick; long-prompt traffic goes on (at most this
 # many ticks) until the replanner's swap has landed
@@ -580,6 +622,7 @@ def main() -> int:
     from repro_torch.launch import loop_extraction
     from repro_torch.models import factory as F
     from repro_torch.models import layers as L
+    from repro_torch.models import lm
     from repro_torch.models.lm import layer_plan
     from repro_torch.models.moe import moe_capacity, route_tokens
     from repro_torch.models.offload_program import make_lm_program
@@ -812,15 +855,16 @@ def main() -> int:
     tols = {bf16: 2e-2, f32: 2e-5}
     flops_rate = {bf16: BF16_FLOPS_PER_S, f32: FP32_FLOPS_PER_S}
 
-    def flash_direct(q, k, v, window, block_q, block_k):
+    def flash_direct(q, k, v, window, block_q, block_k, causal=True):
         """The kernel from its C entry point (as ``c_entry``)."""
         o = torch.empty_like(q)
         b, hq, n, d = q.shape
         return c_entry(FA._lib(), "flash_attention_launch", (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-            k.shape[1], n, d, block_q, block_k, 1, window, 1.0 / math.sqrt(d),
-            int(q.dtype == bf16)), (o,), (FA.flash_attention(
-                q, k, v, window=window, block_q=block_q, block_k=block_k),),
+            k.shape[1], n, d, block_q, block_k, int(causal), window,
+            1.0 / math.sqrt(d), int(q.dtype == bf16)), (o,), (
+                FA.flash_attention(q, k, v, causal=causal, window=window,
+                                   block_q=block_q, block_k=block_k),),
             "flash_attention")
 
     flash_cases = [(f"serve S={n}", 1, 32, 8, n, 128, bf16, 0)
@@ -838,6 +882,11 @@ def main() -> int:
     flash_cases += [("hybrid planner (reduced)", 2, 4, 1, 128, 16, bf16, 32),
                     ("ragged f32 D=256 window=48", 1, 10, 1, 300, 256, f32,
                      48)]
+    # paligemma-3b (phase 16): 8 query heads over 1 kv head of width 256,
+    # causal over its 256-patch prefix and a bucket (16, 512, 1,824): S no
+    # multiple of a tile, ragged tail tiles
+    flash_cases += [(f"paligemma S={n}", 1, 8, 1, n, 256, bf16, 0)
+                    for n in PALI_SEQS]
     flash256, flash_f32 = {}, {}
     for label, b, hq, hkv, n, d, dt, window in flash_cases:
         q, k, v = randn(b, hq, n, d, dtype=dt), randn(b, hkv, n, d, dtype=dt), \
@@ -919,6 +968,42 @@ def main() -> int:
                     "replaces": "src/repro/kernels/flash_attention.py:74",
                     **found}
         del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # row 3w: whisper-small's encoder (phase 15), bidirectional
+    # self-attention over its 1,500 positions in 12/12 heads of width 64;
+    # S no multiple of a tile.  Timed as graph replays beside SDPA
+    b, h, n, d = 1, WHISPER_HEADS, WHISPER_ENC_SEQ, WHISPER_HEAD_DIM
+    q, k, v = (randn(b, h, n, d, dtype=bf16) for _ in range(3))
+    got = FA.flash_attention(q, k, v, causal=False)
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    lib = sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert_close(torch, got.float(), want.float(), "flash_attention 3w",
+                 rtol=2e-2, atol=2e-2)
+    assert_close(torch, lib.float(), want.float(), "SDPA vs plain (3w)",
+                 rtol=2e-2, atol=2e-2)
+    bq, bk = FA.default_tiles(bf16, d)
+    ms, ms_range = graph_ms(torch, flash_direct(q, k, v, 0, bq, bk,
+                                                causal=False), 20)
+    plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
+        q, k, v, causal=False), 3)
+    lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(q, k, v), 20)
+    bound_ms, bound_by = flash_bound_ms(b, h, h, n, d, 2, False, 0,
+                                        BF16_FLOPS_PER_S)
+    flash_whisper = {"max_abs_err": max_abs_err(torch, got.float(),
+                                                want.float()),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    print(f"flash_attention 3w whisper encoder [B={b}, Hq={h}, Hkv={h}, "
+          f"S={n}, D={d}] bf16 bidirectional, tiles {bq}x{bk}: max_abs_err="
+          f"{flash_whisper['max_abs_err']:.3e} (tol rtol=atol=2e-2); kernel "
+          f"{ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms {plain_range}  "
+          f"SDPA {lib_ms:.4f} ms {lib_range}  kernel/SDPA {ms / lib_ms:.2f}x"
+          f"  bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+          f"{bound_ms / ms:.1%} of it) [{card}]")
+    print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
+    del q, k, v, got, want, lib
     torch.cuda.empty_cache()
 
     # the bf16 instances run on the tensor cores (HGMMA) fed by TMA (UTMALDG)
@@ -1399,7 +1484,11 @@ def main() -> int:
 
     def serve_arch(arch: str, hopper: tuple[str, ...],
                    mix: tuple[int, ...] = tuple(range(len(SERVE_PROMPTS))),
-                   ncfg=None, floor_variants: dict | None = None) -> dict:
+                   ncfg=None, floor_variants: dict | None = None,
+                   lengths: tuple[int, ...] | None = None,
+                   buckets: tuple[int, ...] | None = None,
+                   ctx: int = SERVE_CTX, on_plan=None,
+                   with_model=None) -> dict:
         """Plan ``make_lm_program(arch)`` (then a cache hit), draw the model
         (``ncfg``, by default the arch's full config) on the card, serve the
         request mix twice with the ``hopper`` regions over the planned
@@ -1408,8 +1497,13 @@ def main() -> int:
         each request's prefill logits under hopper against ref, the noise
         floor being offload against ref and, where given, each of
         ``floor_variants`` (name -> fn, registered for the hopper regions
-        for this comparison only).  Every launch counter is zeroed first;
-        returns the counts of planning and the engine's two rounds."""
+        for this comparison only).  The mix is ``SERVE_PROMPTS[mix]`` in
+        ``SERVE_BUCKETS[mix]`` at ``SERVE_CTX``, or ``lengths`` in
+        ``buckets`` at ``ctx``; a frontend arch's requests each carry their
+        own synthetic patches or frames.  ``on_plan(report)`` checks the
+        plan; ``with_model(params, ncfg)`` runs before the model is freed.
+        Every launch counter is zeroed first; returns the counts of
+        planning and the engine's two rounds."""
         for counter in counters:
             counter.launches = 0
         with tempfile.TemporaryDirectory() as tmp:
@@ -1422,6 +1516,8 @@ def main() -> int:
                   f"{len(report.measurements)} measurements")
             if not (report.baseline.ok and report.measurements):
                 raise AssertionError(f"{prog.name}: unsound plan")
+            if on_plan is not None:
+                on_plan(report)
             again = AutoOffloader(cfg).plan(prog, cache=cache)
             if not again.from_cache or again.measurements:
                 raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
@@ -1451,14 +1547,26 @@ def main() -> int:
               + (f", {ncfg.num_experts} experts top-{ncfg.experts_per_token}"
                  f" of d_ff {ncfg.moe_d_ff or ncfg.d_ff}" if ncfg.is_moe
                  else "")
+              + (f", {ncfg.encoder_layers}-layer encoder over "
+                 f"{ncfg.encoder_seq} positions" if ncfg.encoder_layers
+                 else "")
+              + (f", frontend {ncfg.frontend} [{ncfg.frontend_seq}, "
+                 f"{ncfg.frontend_dim}]" if ncfg.frontend != "none" else "")
               + f": {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
               f"{sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
               f" GiB, drawn on the card in {time.perf_counter() - t0:.1f} s")
-        engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+        engine = ServeEngine(ncfg, params, slots=SERVE_SLOTS, ctx=ctx,
                              seed=0, impl=impl)
-        prompts = [F.synthetic_request(ncfg, SERVE_PROMPTS[i], seed=100 + i)[0]
-                   for i in mix]
-        buckets = tuple(SERVE_BUCKETS[i] for i in mix)
+        if lengths is None:      # request i of the mix of six: seed 100 + i
+            lengths = tuple(SERVE_PROMPTS[i] for i in mix)
+            buckets = tuple(SERVE_BUCKETS[i] for i in mix)
+            seeds = tuple(100 + i for i in mix)
+        else:
+            seeds = tuple(100 + i for i in range(len(lengths)))
+        requests = [F.synthetic_request(ncfg, n, seed=seed)
+                    for n, seed in zip(lengths, seeds)]
+        prompts = [r[0] for r in requests]
+        n_front = ncfg.n_front
 
         def serve_round(eng, label: str):
             """Serve the mix on ``eng``; check it, print it, return the
@@ -1467,8 +1575,9 @@ def main() -> int:
             traces = eng.prefill_traces
             built = ("first calls" if isinstance(eng, EagerTwin)
                      else "captures")
-            for prompt in prompts:
-                eng.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS)
+            for prompt, frontend in requests:
+                eng.submit(prompt, max_new_tokens=SERVE_NEW_TOKENS,
+                           frontend=frontend)
             t0 = time.perf_counter()
             eng.run_to_completion()
             torch.cuda.synchronize()
@@ -1528,7 +1637,7 @@ def main() -> int:
             raise AssertionError(f"serve {arch}: round 2 counted no launch of "
                                  f"{silent}")
         # the eager twin: the same step functions, called eagerly
-        twin = EagerTwin(ncfg, params, slots=SERVE_SLOTS, ctx=SERVE_CTX,
+        twin = EagerTwin(ncfg, params, slots=SERVE_SLOTS, ctx=ctx,
                          seed=0, impl=impl)
         eager_streams, _ = serve_round(twin, "eager twin")
         del twin
@@ -1541,7 +1650,8 @@ def main() -> int:
         # one decode step with all slots active, as a graph replay and as
         # the eager step function (the twin's path), on the engine's cache
         toks = np.asarray(streams, np.int32)[:SERVE_SLOTS, -1:]
-        pos = np.asarray([p.size for p in prompts][:SERVE_SLOTS], np.int32) + 8
+        pos = np.asarray([p.size + n_front for p in prompts][:SERVE_SLOTS],
+                         np.int32) + 8
         toks = np.resize(toks, (SERVE_SLOTS, 1))
         pos = np.resize(pos, SERVE_SLOTS)
         replay = engine._gen.decode
@@ -1566,10 +1676,13 @@ def main() -> int:
             print(f"  profiled {k}: {prof[k]}")
         busy = device_ms["graph"]
         # the least a step can take: every weight it reads (the embedding
-        # table gives 4 rows) and the whole KV / state cache, once, at the
+        # table gives 4 rows; a frontend's projection, stem and encoder run
+        # at prefill only) and the whole KV / state cache, once, at the
         # card's memory rate.  An MoE step reads every expert: at decode
         # each expert's capacity holds all the slots (moe_ffn=offload)
-        weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+            {k: v for k, v in params.items()
+             if k not in ("w_front", "stem", "encoder")}))
         if not ncfg.tie_embeddings:
             embed = params["embed"]
             weight_bytes -= embed.numel() * embed.element_size()
@@ -1582,25 +1695,31 @@ def main() -> int:
               f"({weight_bytes / 1e9:.2f} GB of weights + "
               f"{cache_bytes / 1e9:.2f} GB of cache at "
               f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
-              + (f": {busy / bound:.2f}x" if busy is not None else ""))
+              + (f": {busy / bound:.2f}x" if busy is not None else "")
+              + f" [{card}]")
         del replay, eager, steps
         decode_ms[arch] = (ms, prof)
 
         # the prefill logits of each request under hopper against ref (the
         # engine's own prefill entry point), with offload as the noise floor
         # of two plain versions
-        def prefill_logits(variant: str, prompt):
+        def prefill_logits(variant: str, request):
             # the engine's pattern: over the architectural defaults (MoE:
             # expert choice), as ServeEngine merges them
             step = F.make_bucketed_prefill_step(
                 ncfg, impl=Impl({**F.default_impl(ncfg), **impl,
                                  **{r: variant for r in hopper}}),
-                ctx=SERVE_CTX)
+                ctx=ctx)
+            prompt, frontend = request
             n = prompt.size
-            padded = np.zeros((1, F.prefill_bucket(n, SERVE_CTX)), np.int32)
+            padded = np.zeros((1, F.prefill_bucket(n, ctx - n_front)),
+                              np.int32)
             padded[0, :n] = prompt
-            logits, _ = step(params, {"tokens": torch.from_numpy(padded).to(dev)},
-                             n)
+            batch = {"tokens": torch.from_numpy(padded).to(dev)}
+            if frontend is not None:
+                batch[F.frontend_key(ncfg)] = torch.from_numpy(
+                    frontend[None]).to(dev)
+            logits, _ = step(params, batch, n)
             return logits[0, -1]
 
         worst = floor = 0.0
@@ -1610,17 +1729,18 @@ def main() -> int:
             for r in hopper:
                 register_variant(r, name)(fn)
         try:
-            for prompt in prompts:
-                hop = prefill_logits("hopper", prompt)
-                ref = prefill_logits("ref", prompt)
-                off = prefill_logits("offload", prompt)
+            for request in requests if hopper else ():
+                prompt = request[0]
+                hop = prefill_logits("hopper", request)
+                ref = prefill_logits("ref", request)
+                off = prefill_logits("offload", request)
                 if not bool(torch.isfinite(hop).all()):
                     raise AssertionError(f"serve {arch}: non-finite prefill "
                                          "logits")
                 diff = float((hop - ref).abs().max())
                 worst = max(worst, diff)
                 floors = {
-                    v: float((prefill_logits(v, prompt) - ref).abs().max())
+                    v: float((prefill_logits(v, request) - ref).abs().max())
                     for v in extra}
                 floors["offload"] = float((off - ref).abs().max())
                 floor = max(floor, *floors.values())
@@ -1637,14 +1757,19 @@ def main() -> int:
                 for r in hopper:
                     unregister_variant(r, name)
         tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
-        print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; noise "
-              f"floor ({' and '.join(['offload', *extra])} vs ref) "
-              f"{floor:.3e}; tol max({LOGIT_NOISE_FACTOR} x floor, "
-              f"{LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
-              f"{agree}/{len(prompts)} prompts")
+        if hopper:
+            print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; "
+                  f"noise floor ({' and '.join(['offload', *extra])} vs ref)"
+                  f" {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} x floor, "
+                  f"{LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
+                  f"{agree}/{len(prompts)} prompts")
+        else:
+            print("no hopper region served: prefill logits not compared")
         if worst > tol:
             raise AssertionError(f"serve {arch}: hopper and ref prefill logits "
                                  f"differ by {worst:.3e} > {tol:.3e}")
+        if with_model is not None:
+            with_model(params, ncfg)
         del engine, params, leaves
         gc.collect()                 # the engine's graphs refer back to it
         torch.cuda.empty_cache()
@@ -2402,6 +2527,125 @@ def main() -> int:
     del prog, report, again, ref, hop, fn14, args14
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 15. serve whisper-small (slice-10 main path, audio frontend) --
+    phase("15. serve whisper-small")
+    t15 = time.perf_counter()
+    hopper_genes = {}
+
+    def whisper_plan(report):
+        """Cross-attention has s != sk, which the flash kernel refuses:
+        a measured pattern with attn_core=hopper must have failed, and
+        the selected one must not hold it."""
+        hop = [m for m in report.measurements
+               if (m.mapping() or {}).get("attn_core") == "hopper"]
+        hopper_genes["measured"] = len(hop)
+        print(f"attn_core=hopper: {len(hop)} measured pattern(s), "
+              + ("every one failed" if hop else "none proposed by Step 4")
+              + "; selected " + (report.best_impl().describe() or "all-ref"))
+        if any(m.ok for m in hop):
+            raise AssertionError("whisper: a pattern with attn_core=hopper "
+                                 "did not fail")
+        if report.best_impl().get("attn_core") == "hopper":
+            raise AssertionError("whisper: the selected pattern holds "
+                                 "attn_core=hopper")
+
+    enc_launches = {}
+
+    def whisper_encode(params, ncfg):
+        """The encoder at full width under attn_core=hopper against ref:
+        one bidirectional flash launch per layer, held to the rule of the
+        prefill logits (3x the offload-vs-ref floor, at least 0.05)."""
+        frames = torch.from_numpy(F.synthetic_request(
+            ncfg, 8, seed=150)[1][None]).to(dev)
+        out = {}
+        for variant in ("offload", "ref", "hopper"):
+            for counter in counters:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            out[variant] = lm.encode(params, frames, cfg=ncfg,
+                                     impl=Impl({"attn_core": variant}))
+            torch.cuda.synchronize()
+            if variant == "hopper":
+                enc_launches.update({c.__name__: c.launches
+                                     for c in counters})
+                enc_launches["seconds"] = time.perf_counter() - t0
+        floor = float((out["offload"] - out["ref"]).abs().max())
+        diff = float((out["hopper"] - out["ref"]).abs().max())
+        tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
+        print(f"encode [1, {ncfg.frontend_seq}, {ncfg.frontend_dim}] frames "
+              f"-> {list(out['hopper'].shape)} under attn_core=hopper: max "
+              f"|hopper - ref| {diff:.3e}, noise floor (offload vs ref) "
+              f"{floor:.3e}, tol {tol:.3e}; max |ref| "
+              f"{float(out['ref'].abs().max()):.3f}; flash launches "
+              f"{enc_launches['flash_attention']}")
+        if not bool(torch.isfinite(out["hopper"]).all()) or diff > tol:
+            raise AssertionError(f"whisper encode: hopper and ref differ by "
+                                 f"{diff:.3e} > {tol:.3e} or non-finite")
+        if enc_launches["flash_attention"] != ncfg.encoder_layers:
+            raise AssertionError(f"whisper encode launched flash "
+                                 f"{enc_launches['flash_attention']} times, "
+                                 f"not {ncfg.encoder_layers}")
+
+    whisper_launches = serve_arch(
+        WHISPER_ARCH, (), lengths=WHISPER_PROMPTS, buckets=WHISPER_BUCKETS,
+        ctx=WHISPER_CTX, on_plan=whisper_plan, with_model=whisper_encode)
+    # the cross-attention of a prefill under attn_core=hopper: the wrapper
+    # raises, and no plain version runs in the kernel's place
+    small = get_config(WHISPER_ARCH).reduced()
+    small_params = F.init_params(small, torch.Generator(device=dev)
+                                 .manual_seed(0))
+    plain_calls = []
+    plain = FA.flash_attention_plain
+    FA.flash_attention_plain = lambda *a, **kw: (plain_calls.append(1),
+                                                 plain(*a, **kw))[1]
+    before = FA.flash_attention.launches
+    try:
+        step = F.make_bucketed_prefill_step(
+            small, impl=Impl({"attn_core": "hopper"}), ctx=32)
+        tokens, frames = F.synthetic_request(small, 5, seed=151)
+        padded = np.zeros((1, 8), np.int32)
+        padded[0, :5] = tokens
+        step(small_params, {"tokens": torch.from_numpy(padded).to(dev),
+                            "frames": torch.from_numpy(frames[None]).to(dev)},
+             5)
+        raise AssertionError("whisper prefill under attn_core=hopper did "
+                             "not raise")
+    except ValueError as err:
+        if "self-attention" not in str(err):
+            raise
+        print(f"reduced whisper prefill under attn_core=hopper raised, as "
+              f"it must: {err}; flash launches before the raise "
+              f"{FA.flash_attention.launches - before} (the encoder's and "
+              f"the decoder's self-attention), plain versions run "
+              f"{len(plain_calls)}")
+    finally:
+        FA.flash_attention_plain = plain
+    if plain_calls:
+        raise AssertionError("a plain flash version ran under "
+                             "attn_core=hopper")
+    del small_params
+    print(f"launches in phase 15: serving {whisper_launches}; encode "
+          f"{enc_launches}; phase wall {time.perf_counter() - t15:.1f} s "
+          f"[{card}]")
+
+    # ---- 16. serve paligemma-3b (slice-10 main path, SigLIP prefix) ----
+    phase("16. serve paligemma-3b")
+    t16 = time.perf_counter()
+    pali_launches = serve_arch(PALI_ARCH, ("attn_core",),
+                               lengths=PALI_PROMPTS, buckets=PALI_BUCKETS,
+                               ctx=SERVE_CTX)
+    if pali_launches["flash_attention"] <= 0:
+        raise AssertionError("flash_attention was not launched serving "
+                             f"{PALI_ARCH}")
+    print(f"launches in phase 16: {pali_launches}; phase wall "
+          f"{time.perf_counter() - t16:.1f} s [{card}]")
+    rows["flash_attention"]["launches"] += (enc_launches["flash_attention"]
+                                            + pali_launches["flash_attention"])
+    print(f"flash_attention 3w (whisper encoder, bidirectional, [1, 12/12, "
+          f"1,500, 64]): {json.dumps(flash_whisper)}; launches: phase 15's "
+          f"encode {enc_launches['flash_attention']}, phase 16's serving "
+          f"{pali_launches['flash_attention']} [{card}]")
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")

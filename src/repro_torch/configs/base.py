@@ -5,11 +5,12 @@ Mirrors the JAX package's ``configs/base.py``: one frozen
 package (``configs/<arch>.py``), and :meth:`ModelConfig.reduced`, the tiny
 same-family config the CPU tests and the planner's measurements use.
 
-The registry loads the configs of the architectures the port can build:
-the dense decoders (slices 2 and 9), the two recurrent families, Mamba-1
-SSM and the RG-LRU / local-attention hybrid (slice 3), and the
-Mixture-of-Experts decoders (slice 9).  Frontends and encoders raise in
-``models/lm.py`` with the slice that brings them.
+The registry loads every architecture of the JAX package: the dense
+decoders, the two recurrent families (Mamba-1 SSM and the RG-LRU /
+local-attention hybrid), the Mixture-of-Experts decoders, and the two
+frontends: paligemma-3b (a stub of SigLIP patch embeddings prepended to
+the decoder's tokens) and whisper-small (a conv stem, an encoder and
+cross-attention).
 """
 from __future__ import annotations
 
@@ -204,8 +205,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
-# the architectures the port can build so far, in the JAX registry's
-# order; paligemma-3b and whisper-small arrive with the frontends
+# the JAX registry's architectures, in its order
 ARCH_IDS = (
     "recurrentgemma-2b",
     "mistral-nemo-12b",
@@ -214,6 +214,8 @@ ARCH_IDS = (
     "deepseek-67b",
     "kimi-k2-1t-a32b",
     "arctic-480b",
+    "paligemma-3b",
+    "whisper-small",
     "falcon-mamba-7b",
 )
 

@@ -7,8 +7,9 @@ annotated path (``make_lm_program``, ``apps/``) plays that role by hand:
 someone decides which blocks are regions.  This module is the automatic
 version: capture a function as an aten graph, walk it, and statically
 recognize the computational blocks the port's kernel registry knows how
-to offload (``attn_core``, ``mlp_core``, ``ssm_scan``, ``rglru_scan``,
-``fir_bank``, ``moe_dispatch``, ``rmsnorm``).  Adjacent legal matches are
+to offload (``attn_core``, ``mlp_core``, ``mlp_gelu``, ``conv_stem``,
+``ssm_scan``, ``rglru_scan``, ``fir_bank``, ``moe_dispatch``,
+``rmsnorm``).  Adjacent legal matches are
 also *stitched* into fused regions (``left+right``) the planner prices
 against their split forms, and every near-miss is recorded as a structured
 :class:`Rejection`.
@@ -32,8 +33,8 @@ enumerator
     sites: loop statements (recognizers read a statement's structure from
     its iteration 0, as the JAX recognizers read a ``scan`` body),
     ``while_loop`` nodes, and ``rsqrt`` (norm), ``silu``/``sigmoid``
-    (gate), ``tanh`` (act), ``convolution`` (conv) and ``topk``/``sort``
-    (route) anchors.
+    (gate), ``tanh``/``gelu`` (act), ``convolution`` (conv) and
+    ``topk``/``sort`` (route) anchors.
 recognizers
     ``_match_*``: structural matchers from a site to a :class:`RegionMatch`
     — the family, the graph nodes that become the variant's arguments and
@@ -76,7 +77,7 @@ from repro_torch.core.regions import REGISTRY, Impl, dispatch, register_variant
 
 # families this pass can recognize, in recognizer precedence order
 FAMILIES = ("attn_core", "ssm_scan", "rglru_scan", "fir_bank", "moe_dispatch",
-            "mlp_core", "rmsnorm")
+            "conv_stem", "mlp_gelu", "mlp_core", "rmsnorm")
 
 # dtypes the registered kernel variants accept (legality gate)
 _FLOAT_OK = ("bfloat16", "float32")
@@ -331,7 +332,8 @@ class CandidateSite:
 
 
 _ANCHORS = {"rsqrt": "norm", "silu": "gate", "sigmoid": "gate", "tanh": "act",
-            "convolution": "conv", "topk": "route", "sort": "route"}
+            "gelu": "act", "convolution": "conv", "topk": "route",
+            "sort": "route"}
 
 
 def enumerate_sites(ctx: _Ctx) -> list[CandidateSite]:
@@ -809,6 +811,173 @@ def _match_swiglu(ctx: _Ctx, gid: int, n) -> Optional[RegionMatch]:
 
 
 # ---------------------------------------------------------------------------
+# Recognizer: gelu MLP (mm -> + bias -> gelu (tanh) -> mm -> + bias)
+# ---------------------------------------------------------------------------
+# the ops between a bias vector and the add that applies it
+_BIAS_CHAIN = ("_to_copy", "expand", "view", "_unsafe_view", "reshape",
+               "unsqueeze")
+
+
+def _tanh_gelu(n) -> bool:
+    """``aten.gelu`` in its tanh form, ``jax.nn.gelu``'s default (the erf
+    form is another function than the variants compute)."""
+    return _op(n) == "gelu" and n.kwargs.get("approximate", "none") == "tanh"
+
+
+def _bias_add(v, width: int):
+    """(the ``add`` that adds a 1-D ``width`` bias to ``v``, the bias) or
+    (None, None)."""
+    for u in v.users:
+        if _op(u) != "add" or len(u.args) != 2:
+            continue
+        other = u.args[1] if u.args[0] is v else u.args[0]
+        b = _peel(other, _BIAS_CHAIN)
+        if isinstance(b, fx.Node) and _shape(b) == (width,):
+            return u, b
+    return None, None
+
+
+def _upcast_of(v):
+    """The operand of a cast to float32 from another type (the offload
+    form's ``.float()`` before its float32 product), else ``v``."""
+    if _op(v) == "_to_copy" and _dtype(v) == "float32" \
+            and _dtype(v.args[0]) != "float32":
+        return v.args[0]
+    return v
+
+
+def _match_gelu_mlp(ctx: _Ctx, gid: int, n) -> Optional[RegionMatch]:
+    """``layers.gelu_mlp``: ``gelu(x @ w_up + b_up) @ w_down + b_down``
+    with 2-D weights and 1-D biases, anchored at the tanh gelu; the row
+    views of a [.., D] ``x`` around each ``mm`` and the casts of the
+    float32-accumulating form are peeled."""
+    if not _tanh_gelu(n):
+        return None
+    add1 = _producer(_peel(n.args[0], ("_to_copy",)), "add")
+    if add1 is None:
+        return None
+    d1 = b_up = None
+    for a, b in (add1.args[:2], add1.args[1::-1]):
+        mm = _matmul_of(a) if isinstance(a, fx.Node) else None
+        if mm is not None:
+            d1, b_up = mm, _peel(b, _BIAS_CHAIN)
+            break
+    if d1 is None:
+        return None
+    x = _upcast_of(_peel(d1.args[0], _ROWS))
+    w_up = _upcast_of(d1.args[1])
+    if len(_shape(w_up)) != 2 or _shape(b_up) != _shape(w_up)[1:]:
+        return None
+    # forward: the gelu (cast back, as the offload form does) into w_down
+    g = n
+    users = list(g.users)
+    if len(users) == 1 and _op(users[0]) == "_to_copy":
+        g = users[0]
+    reach = list(g.users) + [uu for u in g.users if _op(u) in _ROWS
+                             for uu in u.users]
+    d2s = [u for u in reach if _op(u) == "mm" and _peel(u.args[0], _ROWS) is g]
+    if len(d2s) != 1:
+        return None
+    w_down = d2s[0].args[1]
+    if len(_shape(w_down)) != 2:
+        return None
+    h2 = _forward(d2s[0], _ROWS, _shape(x)[:-1] + _shape(w_down)[1:])
+    if h2 is None:
+        return None
+    out, b_down = _bias_add(h2, _shape(w_down)[1])
+    if out is None:
+        return None
+    users = list(out.users)
+    if len(users) == 1 and _op(users[0]) == "_to_copy" \
+            and _dtype(users[0]) == _dtype(x):
+        out = users[0]
+    invars = (x, w_up, b_up, w_down, b_down)
+    covered, leaves = _slice_from([out], list(invars))
+    if leaves:
+        return None
+    return RegionMatch("mlp_gelu", gid, _node_path(ctx, gid, n), invars,
+                       (out,), frozenset(covered))
+
+
+# ---------------------------------------------------------------------------
+# Recognizer: conv stem (convolution + bias + gelu), whisper's audio stem
+# ---------------------------------------------------------------------------
+def _match_conv_stem(ctx: _Ctx, gid: int, n):
+    """``conv_stem``'s ``ref`` in aten: a 1-D ``convolution`` of
+    ``transpose(x)`` [B, Cin, W] (``x`` [B, W, Cin]) with ``permute(w,
+    [2, 1, 0])`` (``w`` an HIO kernel [K, Cin, Cout]), "SAME" padded (by
+    the conv's own padding, a ``constant_pad_nd`` of zeros, or both),
+    transposed back (and made contiguous), plus a [Cout] bias (not the
+    conv's own: JAX's conv has none), then the tanh gelu.  Returns a
+    ``RegionMatch`` with ``stride`` as a static kwarg, a ``Rejection`` for
+    a convolution no registered variant serves (2-D, dilated, transposed,
+    grouped, another layout or padding), or None when no bias and gelu
+    follow."""
+    if _op(n) != "convolution":
+        return None
+    inp, weight, bias = n.args[0], n.args[1], n.args[2]
+    stride, padding, dilation, transposed, _, groups = n.args[3:9]
+    g = ctx.graphs[gid]
+
+    def rej(reason):
+        return Rejection("conv_stem", _node_path(ctx, gid, n), reason,
+                         primitive="convolution", node_index=g.index[n])
+
+    if len(_shape(weight)) != 3:
+        return rej(f"{len(_shape(weight)) - 2}-D convolution — only 1-D "
+                   "(audio) stems are served")
+    if transposed:
+        return rej("transposed convolution (lhs dilation) — no registered "
+                   "kernel serves dilation")
+    if any(d != 1 for d in dilation):
+        return rej(f"dilated convolution (dilation={list(dilation)}) — no "
+                   "registered kernel serves dilation")
+    if groups != 1:
+        return rej("grouped convolution — no registered kernel serves "
+                   "feature groups")
+    pad_lo = pad_hi = int(padding[0])
+    pad = _producer(inp, "constant_pad_nd")
+    if pad is not None:
+        lo, hi = pad.args[1]
+        if (len(pad.args) > 2 and pad.args[2]) or lo < 0 or hi < 0:
+            return rej(f"conv input padded with {pad.args[1:]} — not the "
+                       "stem's zero padding")
+        pad_lo, pad_hi, inp = pad_lo + lo, pad_hi + hi, pad.args[0]
+    tr = inp if _op(inp) in ("transpose", "permute") else None
+    perm = _op(weight) == "permute" and list(weight.args[1]) == [2, 1, 0]
+    if tr is None or _shape(tr.args[0]) != (_shape(inp)[0], _shape(inp)[2],
+                                             _shape(inp)[1]) or not perm:
+        return rej("conv layout is not the stem's [B, W, Cin] input and "
+                   "HIO kernel (a transposed x, a [2, 1, 0] permute of w)")
+    x, w = tr.args[0], weight.args[0]
+    k, s = _shape(w)[0], int(stride[0])
+    from repro_torch.models.blocks import same_pad   # the variants' rule
+    if (pad_lo, pad_hi) != same_pad(_shape(x)[1], k, s)[1:]:
+        return rej(f"conv padding ({pad_lo}, {pad_hi}) is not SAME — the "
+                   "registered stem variants assume SAME padding")
+    # forward: transpose back to [B, W', Cout] (made contiguous), + bias,
+    # gelu
+    back = _forward(n, ("transpose", "permute"),
+                    (_shape(x)[0], _shape(n)[2], _shape(n)[1]))
+    if back is None or back is n:
+        return None
+    users = list(back.users)
+    if len(users) == 1 and _op(users[0]) == "clone":
+        back = users[0]
+    h, b = _bias_add(back, _shape(w)[2])
+    if bias is not None or h is None:
+        return None
+    gelus = [u for u in h.users if _tanh_gelu(u)]
+    if len(gelus) != 1:
+        return None
+    covered, leaves = _slice_from([gelus[0]], [x, w, b])
+    if leaves:
+        return None
+    return RegionMatch("conv_stem", gid, _node_path(ctx, gid, n), (x, w, b),
+                       (gelus[0],), frozenset(covered), {"stride": s})
+
+
+# ---------------------------------------------------------------------------
 # Recognizer: capacity-bounded MoE dispatch
 # ---------------------------------------------------------------------------
 # the ops between a router's product and its top-k (softmax, casts, views)
@@ -1213,6 +1382,8 @@ RECOGNIZERS = {
     "rglru_scan": _match_affine_scan,
     "fir_bank": _match_fir,
     "moe_dispatch": _match_moe_dispatch,
+    "conv_stem": _match_conv_stem,
+    "mlp_gelu": _match_gelu_mlp,
     "mlp_core": _match_swiglu,
     "rmsnorm": _match_rmsnorm,
 }
@@ -1246,6 +1417,8 @@ def _find_matches(ctx: _Ctx) -> tuple[list, list]:
                     admit(matcher(ctx, gid, stmt))
     for prims, matcher in ((("while_loop",), _match_affine_while),
                            (("topk", "sort"), _match_moe_dispatch),
+                           (("convolution",), _match_conv_stem),
+                           (("gelu",), _match_gelu_mlp),
                            (("silu",), _match_swiglu),
                            (("rsqrt",), _match_rmsnorm)):
         for gid in ctx.order:

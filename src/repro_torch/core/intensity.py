@@ -5,10 +5,11 @@ keeps the top ``a``.  Here the "tool" is a ``TorchDispatchMode`` that runs
 the region function on ``device="meta"`` tensors (shapes and dtypes only, no
 storage, no arithmetic) and classifies every aten op it sees, in the classes
 the JAX package's jaxpr walker uses: matrix products count
-2 * out * contract flops, elementwise ops 1 per output element, reductions 1
-per input element, transcendentals separately (weighted).  Boundary bytes
-are the region's inputs plus outputs — the loop's "data size and access
-count" — and
+2 * out * contract flops, convolutions 2 * out * (reduction size per output
+element), elementwise ops 1 per output element, reductions 1 per input
+element, transcendentals (``gelu`` among them) separately (weighted).
+Boundary bytes are the region's inputs plus outputs — the loop's "data
+size and access count" — and
 
     AI = flops / boundary_bytes.
 
@@ -46,7 +47,7 @@ _ELEMENTWISE_1 = {
 }
 _TRANSCENDENTAL = {
     "exp", "log", "log1p", "expm1", "tanh", "sin", "cos", "tan", "rsqrt",
-    "sqrt", "sigmoid", "erf", "erfinv", "atan2", "exp2",
+    "sqrt", "sigmoid", "erf", "erfinv", "atan2", "exp2", "gelu",
 }
 _REDUCE = {"sum", "mean", "amax", "amin", "prod", "argmax", "argmin",
            "cumsum", "cumprod", "cummax", "cummin", "all", "any"}
@@ -142,7 +143,9 @@ class OpCounter(TorchDispatchMode):
             name = name[:-1]                      # in-place form
         out_elems = sum(t.numel() for t in outs)
         acc, m = self.acc, self.mult
-        if name in _MATMUL:
+        if name == "convolution":
+            acc.flops += m * _conv_flops(args, out_elems)
+        elif name in _MATMUL:
             lhs = args[_MATMUL[name]]
             acc.flops += m * 2.0 * out_elems * lhs.shape[-1]
             if _MATMUL[name]:                     # the fused bias add
@@ -162,6 +165,23 @@ class OpCounter(TorchDispatchMode):
             acc.flops += m * args[0].numel()
         elif name not in _ZERO_FLOP:
             acc.unclassified[name] = acc.unclassified.get(name, 0) + 1
+
+
+def _conv_flops(args, out_elems: int) -> float:
+    """``aten.convolution(x, w, bias, stride, padding, dilation,
+    transposed, output_padding, groups)``: 2 flops per product, and each
+    output element of a forward convolution sums (Cin / groups) x K
+    products, the size of ``w[o]`` ([Cout, Cin / groups, *K]); a
+    transposed convolution spreads each input element over (Cout / groups)
+    x K outputs instead (``w`` [Cin, Cout / groups, *K]).  The bias adds 1
+    per output element.  (The JAX walker takes the reduction size as
+    ``prod(w.shape[2:]) * w.shape[1]``, which reads an HIO kernel as OIH.)"""
+    x, w, bias = args[0], args[1], args[2]
+    if args[6]:                                   # transposed
+        products = x.numel() * (w.numel() // w.shape[0])
+    else:
+        products = out_elems * (w.numel() // w.shape[0])
+    return 2.0 * products + (out_elems if bias is not None else 0)
 
 
 def to_meta(args) -> tuple:

@@ -5,19 +5,22 @@ Three sections:
 
 1. accuracy — ``core/extract.py`` scored against the hand-annotated
    programs: the families ``make_lm_program(arch)`` registers by hand on
-   mistral-nemo-12b, falcon-mamba-7b, recurrentgemma-2b and mixtral-8x7b
-   (plus ``rmsnorm``, which every LM arch contains), and tdFIR's
-   ``fir_bank``, are the ground truth.  The recognizers must reach 0.9
-   precision AND 0.9 recall micro-averaged and **per family** over the
-   seven families, and
-   each family must have a ground-truth case.  The archs are captured on
-   fake tensors: without ``--reduced`` at full width and full depth, which
-   allocates nothing.  Stitched ``left+right`` regions sit outside the
-   scored universe (they are derived, not annotated).
-2. autoplan — ``discover`` + ``AutoOffloader.plan`` on the four archs'
-   reduced all-ref forwards (random weights from a seeded generator), with
-   nobody's annotations: >= 2 regions each, the re-plan must hit the plan
-   cache, and mixtral's routed block must be a ``moe_dispatch`` region.
+   mistral-nemo-12b, falcon-mamba-7b, recurrentgemma-2b, mixtral-8x7b,
+   whisper-small and paligemma-3b (plus ``rmsnorm``, which every LM arch
+   contains), and tdFIR's ``fir_bank``, are the ground truth.  The
+   recognizers must reach 0.9 precision AND 0.9 recall micro-averaged and
+   **per family** over the nine families, and each family must have a
+   ground-truth case.  The archs are captured on fake tensors (a frontend
+   arch's patches or frames too): without ``--reduced`` at full width and
+   full depth, which allocates nothing.  Stitched ``left+right`` regions
+   sit outside the scored universe (they are derived, not annotated).
+2. autoplan — ``discover`` + ``AutoOffloader.plan`` on the six archs'
+   reduced all-ref forwards (random weights from a seeded generator; the
+   frontend archs' synthetic patches or frames closed over, as the JAX
+   benchmark does), with nobody's annotations: >= 2 regions each, the
+   re-plan must hit the plan cache, mixtral's routed block must be a
+   ``moe_dispatch`` region, and whisper's stem and MLPs ``conv_stem`` and
+   ``mlp_gelu`` regions.
 3. stitch — Mistral-NeMo's fused ``rmsnorm+mlp_core`` region planned
    against its split halves: the fused region is measured first-class and
    its presence re-keys the plan cache.
@@ -51,33 +54,37 @@ from repro_torch.models.params import DTYPES, tree_map
 
 UNIVERSE = frozenset(FAMILIES)
 ARCHS = ("mistral-nemo-12b", "falcon-mamba-7b", "recurrentgemma-2b",
-         "mixtral-8x7b")
+         "mixtral-8x7b", "whisper-small", "paligemma-3b")
 SEQ = 32
 TDFIR_SMALL = TdFirConfig(n_banks=4, n_taps=16, n_samples=256)
 
 
 def trace_arch(arch: str, seq: int = SEQ, *, device, reduced: bool = True,
                concrete: bool = True):
-    """``(fn, args)`` for an arch's all-ref forward (``fn(tokens)``).
-    ``concrete``: weights drawn from a seeded generator on ``device`` and
-    real tokens; else fake weights and tokens on ``device``, which hold no
-    memory (a full-width capture on any machine)."""
+    """``(fn, args)`` for an arch's all-ref forward (``fn(tokens)``; a
+    frontend arch's synthetic patches or frames are closed over, as its
+    weights are).  ``concrete``: weights drawn from a seeded generator on
+    ``device`` and real tokens; else fake weights and tokens on
+    ``device``, which hold no memory (a full-width capture on any
+    machine)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     dev = torch.device(device)
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     fwd = F.make_forward(cfg, Impl())
-    tokens = torch.from_numpy(F.synthetic_batch(cfg, 1, seq, seed=1)["tokens"])
+    batch = {k: torch.from_numpy(v)
+             for k, v in F.synthetic_batch(cfg, 1, seq, seed=1).items()}
     if concrete:
         params = F.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-        tokens = tokens.to(dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
     else:
         with FakeTensorMode(allow_non_fake_inputs=True) as mode:
             params = tree_map(lambda s: torch.empty(
                 s.shape, dtype=DTYPES[s.dtype], device=dev), F.template(cfg))
-            tokens = mode.from_tensor(tokens).to(dev)
-    return (lambda t: fwd(params, {"tokens": t})), (tokens,)
+            batch = {k: mode.from_tensor(v).to(dev) for k, v in batch.items()}
+    tokens = batch.pop("tokens")
+    return (lambda t: fwd(params, {"tokens": t, **batch})), (tokens,)
 
 
 def ground_truth_cases(device, *, reduced: bool, seq: int = SEQ):
@@ -270,11 +277,14 @@ def main(argv=None) -> dict:
             raise AssertionError(f"{r['app']}: {r['regions']} discovered "
                                  f"regions (want >= 2), re-plan from the "
                                  f"cache: {r['cached_replan']}")
-    # the MoE arch must auto-plan with its routed block as a region
-    moe_row = next(r for r in plan_rows if r["app"] == "mixtral-8x7b")
-    if "moe_dispatch" not in moe_row["families"].split(","):
-        raise AssertionError("mixtral auto-plan lost moe_dispatch: "
-                             f"{moe_row['families']}")
+    # the MoE arch must auto-plan with its routed block as a region, and
+    # whisper with its stem and gelu MLPs
+    for arch, want in (("mixtral-8x7b", {"moe_dispatch"}),
+                       ("whisper-small", {"conv_stem", "mlp_gelu"})):
+        row = next(r for r in plan_rows if r["app"] == arch)
+        if not want <= set(row["families"].split(",")):
+            raise AssertionError(f"{arch} auto-plan lost {sorted(want)}: "
+                                 f"{row['families']}")
 
     stitch_row = run_stitch_demo(dev, reps=a.reps)
     print(f"stitch: fused={stitch_row['fused_regions']} "

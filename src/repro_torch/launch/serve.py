@@ -6,8 +6,11 @@
       [--reduced] [--auto-offload] [--device cpu]
 
 ``--arch`` takes every arch of the port's registry (``configs/base.py``:
-the dense, MoE, SSM and hybrid decoders); those larger than one card
-(the MoE archs, qwen2-72b, deepseek-67b) run there only ``--reduced``.
+the dense, MoE, SSM and hybrid decoders and the two frontends); those
+larger than one card (the MoE archs, qwen2-72b, deepseek-67b) run there
+only ``--reduced``.  Each request of a frontend arch carries its synthetic
+patch embeddings (paligemma-3b; the cache holds the prefix too) or mel
+frames (whisper-small).
 
 With ``--auto-offload`` the launcher runs the block-level offload planner
 (``models/offload_program.py``) first, against the plan cache
@@ -164,7 +167,7 @@ def main(argv=None) -> None:
                             offloader=offloader)
     params = F.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed))
-    ctx = args.prompt_len + args.new_tokens
+    ctx = args.prompt_len + args.new_tokens + cfg.n_front
     engine = ServeEngine(cfg, params, slots=args.slots, ctx=ctx,
                          seed=args.seed, impl=impl)
     replanner = None
@@ -184,9 +187,10 @@ def main(argv=None) -> None:
         plen = args.prompt_len
         if args.vary_lengths:
             plen = max(1, args.prompt_len - (r % 4) * (args.prompt_len // 4))
-        tokens, _ = F.synthetic_request(cfg, plen, seed=args.seed * 100_003 + r)
+        tokens, frontend = F.synthetic_request(
+            cfg, plen, seed=args.seed * 100_003 + r)
         engine.submit(tokens, max_new_tokens=args.new_tokens,
-                      sampling=sampling)
+                      sampling=sampling, frontend=frontend)
 
     t0 = time.perf_counter()
     done = engine.run_to_completion()

@@ -40,8 +40,10 @@ def bench_one(cfg, params, *, slots: int, requests: int, new_tokens: int,
     sampling = SamplingParams(temperature=temperature)
     for r in range(requests):
         plen = PROMPT_LENGTHS[r % len(PROMPT_LENGTHS)]
-        tokens, _ = F.synthetic_request(cfg, plen, seed=seed * 100_003 + r)
-        engine.submit(tokens, max_new_tokens=new_tokens, sampling=sampling)
+        tokens, frontend = F.synthetic_request(cfg, plen,
+                                               seed=seed * 100_003 + r)
+        engine.submit(tokens, max_new_tokens=new_tokens, sampling=sampling,
+                      frontend=frontend)
     t0 = time.perf_counter()
     engine.run_to_completion()          # every token sampled to the host
     wall = time.perf_counter() - t0

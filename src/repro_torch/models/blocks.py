@@ -1,8 +1,8 @@
 """Per-layer block templates and apply functions — the port of the JAX
-package's ``models/blocks.py`` for decoders: attention (full and
-sliding-window, GQA), the SwiGLU MLP, the Mixture-of-Experts FFN (with
-arctic's parallel dense residual MLP), the Mamba-1 SSM block and the
-RG-LRU block.
+package's ``models/blocks.py``: attention (full and sliding-window, GQA,
+and cross-attention to an encoder's output), the SwiGLU and gelu MLPs,
+the Mixture-of-Experts FFN (with arctic's parallel dense residual MLP),
+whisper's conv stem, the Mamba-1 SSM block and the RG-LRU block.
 
 Each block kind provides ``<kind>_template(cfg)`` (a ParamSpec tree, one
 layer, unstacked), ``<kind>_apply`` (full sequence) and, for the kinds
@@ -11,8 +11,7 @@ with a cache, ``<kind>_decode`` (one token against the cache) and
 it.  Blocks route their hot loops through
 :func:`repro_torch.core.regions.dispatch`, so the planner can swap
 implementations.  The JAX sharding constraints have no counterpart on one
-card; the gelu-MLP and conv-stem blocks come with the slice that ports
-the frontends.
+card.
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ from repro_torch.models import ssm as SS
 from repro_torch.models.params import spec
 
 # ---------------------------------------------------------------------------
-# attn_core / mlp_core region variants
+# attn_core / mlp_core / mlp_gelu / conv_stem region variants
 # ---------------------------------------------------------------------------
 register_variant("attn_core", "ref")(
     lambda q, k, v, **kw: L.chunked_attention(q, k, v, q_chunk=512,
@@ -52,6 +51,55 @@ def _mlp_offload(x, w_gate, w_up, w_down):
     h = x @ torch.cat([w_gate, w_up], dim=1)
     g, u = h.chunk(2, dim=-1)
     return (F.silu(g) * u) @ w_down
+
+
+@register_variant("mlp_gelu", "ref")
+def _mlp_gelu_ref(x, w_up, b_up, w_down, b_down):
+    return L.gelu_mlp(x, w_up, b_up, w_down, b_down)
+
+
+@register_variant("mlp_gelu", "offload")
+def _mlp_gelu_offload(x, w_up, b_up, w_down, b_down):
+    # one pass with the first product accumulated in float32 and the bias
+    # added before the gelu (what a fused gelu-MLP kernel computes)
+    h = x.float() @ w_up.float() + b_up.float()
+    g = F.gelu(h, approximate="tanh").to(x.dtype)
+    return (g @ w_down + b_down).to(x.dtype)
+
+
+def same_pad(win: int, k: int, stride: int) -> tuple[int, int, int]:
+    """(out_w, lo, hi) of a "SAME"-padded strided window: XLA's split, the
+    odd element of the padding on the high side."""
+    out_w = -(-win // stride)
+    total = max((out_w - 1) * stride + k - win, 0)
+    return out_w, total // 2, total - total // 2
+
+
+@register_variant("conv_stem", "ref")
+def _conv_stem_ref(x, w, b, *, stride=1):
+    # x: [B, W, Cin]; w: [K, Cin, Cout] (HIO, whisper's k=3 conv1d stem
+    # layer); a "SAME"-padded strided conv1d, then gelu(h + b)
+    _, lo, hi = same_pad(x.shape[1], w.shape[0], stride)
+    xt = F.pad(x.transpose(1, 2), (lo, hi))                 # [B, Cin, W']
+    h = F.conv1d(xt, w.permute(2, 1, 0), stride=stride)     # [B, Cout, out_w]
+    # back to a contiguous [B, out_w, Cout], the layout the offload form
+    # returns (the encoder's matmuls then fold their rows into one mm)
+    h = h.transpose(1, 2).contiguous()
+    return F.gelu(h + b, approximate="tanh")
+
+
+@register_variant("conv_stem", "offload")
+def _conv_stem_offload(x, w, b, *, stride=1):
+    # im2col: gather the K strided windows and run ONE matmul (conv as a
+    # dense GEMM)
+    k, cin, cout = w.shape
+    out_w, lo, hi = same_pad(x.shape[1], k, stride)
+    xp = F.pad(x, (0, 0, lo, hi))
+    span = (out_w - 1) * stride + 1
+    cols = torch.cat([xp[:, i:i + span:stride] for i in range(k)],
+                     dim=-1)                                # [B, out_w, K*Cin]
+    h = cols @ w.reshape(k * cin, cout)
+    return F.gelu(h + b, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +132,11 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
-def _qkv(p, h, cfg):
+def _qkv(p, h, kv_src, cfg):
     hd = cfg.resolved_head_dim
     q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (_split_heads(q, cfg.num_heads, hd),
@@ -97,14 +145,17 @@ def _qkv(p, h, cfg):
 
 
 def attn_apply(p, x, *, cfg: ModelConfig, positions, impl=None, causal=True,
-               window=0, return_kv=False):
+               window=0, kv_src=None, kv_positions=None, return_kv=False):
     """Full-sequence attention block with pre-norm residual.
-    x: [B, S, D]; positions: [B, S] absolute positions.  With
-    ``return_kv`` also returns the roped k and v ([B, Hkv, S, hd])."""
+    x: [B, S, D]; positions: [B, S] absolute positions.  ``kv_src``: the
+    encoder's output [B, S_enc, D] for cross-attention (k and v come from
+    it, unnormed, at ``kv_positions``), else self-attention.  With
+    ``return_kv`` also returns the roped k and v ([B, Hkv, S_kv, hd])."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(p, h, cfg)
+    q, k, v = _qkv(p, h, h if kv_src is None else kv_src, cfg)
+    kpos = positions if kv_positions is None else kv_positions
     q = L.apply_rope(q, positions[:, None, :], cfg.rope_theta)
-    k = L.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    k = L.apply_rope(k, kpos[:, None, :], cfg.rope_theta)
     # the kernels take contiguous [B, H, S, hd] tensors
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = dispatch("attn_core", impl, q, k, v, causal=causal, window=window)
@@ -129,13 +180,29 @@ def attn_cache_template(cfg: ModelConfig, batch: int, ctx: int,
     }
 
 
-def attn_decode(p, x, cache, *, cfg: ModelConfig, pos, window=0):
+def attn_decode(p, x, cache, *, cfg: ModelConfig, pos, window=0,
+                cross_kv=None):
     """x: [B, 1, D]; pos: [B] absolute position of this token.  Writes the
     token's k/v into ``cache`` in place and returns (x, cache).  The
     attention itself is the plain ``layers.decode_attention``, as in the
-    JAX package (the ``decode_attn`` region is planned on its own)."""
+    JAX package (the ``decode_attn`` region is planned on its own).
+
+    ``cross_kv``: (k, v, slot_pos) of the encoder's output, written at
+    prefill; the token attends to every slot of it (its "current position"
+    2**30 lies past all of them, and in int32) and writes nothing."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_new, v_new = _qkv(p, h, cfg)
+    if cross_kv is not None:
+        k_cache, v_cache, slot_pos = cross_kv
+        q = h @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = _split_heads(q, cfg.num_heads, cfg.resolved_head_dim)
+        q = L.apply_rope(q, pos[:, None, None], cfg.rope_theta)
+        out = L.decode_attention(q, k_cache, v_cache, slot_pos,
+                                 torch.full_like(pos, 2**30), window=0)
+        out = _merge_heads(out) @ p["wo"]
+        return x + out.to(x.dtype), cache
+    q, k_new, v_new = _qkv(p, h, h, cfg)
     q = L.apply_rope(q, pos[:, None, None], cfg.rope_theta)
     k_new = L.apply_rope(k_new, pos[:, None, None], cfg.rope_theta)
     k_c, v_c, sp = L.cache_update(cache["k"], cache["v"], cache["slot_pos"],
@@ -196,17 +263,32 @@ def attn_prefill_cache(k, v, *, positions, window=0, ctx=None,
 # ---------------------------------------------------------------------------
 # Dense MLP block
 # ---------------------------------------------------------------------------
-def mlp_template(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+def mlp_template(cfg: ModelConfig, d_ff: Optional[int] = None,
+                 gelu: bool = False) -> dict:
+    """SwiGLU weights, or with ``gelu`` the biased up/down pair of the gelu
+    MLP (whisper's)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"ln": spec([d], ("embed",), "zeros"),
-            "w_gate": spec([d, f], ("embed", "mlp")),
-            "w_up": spec([d, f], ("embed", "mlp")),
-            "w_down": spec([f, d], ("mlp", "embed"), "scaled")}
+    t = {"ln": spec([d], ("embed",), "zeros")}
+    if gelu:
+        t.update(w_up=spec([d, f], ("embed", "mlp")),
+                 b_up=spec([f], ("mlp",), "zeros"),
+                 w_down=spec([f, d], ("mlp", "embed"), "scaled"),
+                 b_down=spec([d], ("embed",), "zeros"))
+    else:
+        t.update(w_gate=spec([d, f], ("embed", "mlp")),
+                 w_up=spec([d, f], ("embed", "mlp")),
+                 w_down=spec([f, d], ("mlp", "embed"), "scaled"))
+    return t
 
 
 def mlp_apply(p, x, *, cfg: ModelConfig, impl=None):
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    out = dispatch("mlp_core", impl, h, p["w_gate"], p["w_up"], p["w_down"])
+    if "w_gate" in p:
+        out = dispatch("mlp_core", impl, h, p["w_gate"], p["w_up"],
+                       p["w_down"])
+    else:
+        out = dispatch("mlp_gelu", impl, h, p["w_up"], p["b_up"],
+                       p["w_down"], p["b_down"])
     return x + out.to(x.dtype)
 
 

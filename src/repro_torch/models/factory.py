@@ -1,6 +1,13 @@
 """Model factory: per-arch entry points used by the tests, the planner's
 LM program and the serving engine — the port of the JAX package's
 ``models/factory.py`` (no dry-run specs, no quantized serving yet).
+
+The frontend archs take a second input beside the tokens, under the JAX
+batch's key: paligemma-3b's ``patches`` (stubbed SigLIP patch embeddings,
+prepended to the tokens) and whisper-small's ``frames`` (mel frames, fed to
+its conv stem and encoder).  NumPy has no bfloat16, so the port's host
+arrays are float32 holding bf16 values; the models cast them on the
+device, so a float32 array of JAX's bf16 draw gives the same inputs.
 """
 from __future__ import annotations
 
@@ -56,19 +63,45 @@ def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None):
 # ---------------------------------------------------------------------------
 # Synthetic requests (smoke tests / drivers)
 # ---------------------------------------------------------------------------
+def frontend_key(cfg: ModelConfig) -> Optional[str]:
+    """The batch key of the arch's frontend input: ``"patches"``,
+    ``"frames"`` or None."""
+    return {"siglip_stub": "patches",
+            "audio_stub": "frames"}.get(cfg.frontend)
+
+
+def bf16_values(a: np.ndarray) -> np.ndarray:
+    """float32 ``a`` rounded to the nearest bf16 values (kept float32)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).float().numpy()
+
+
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int,
                     seed: int = 0) -> dict:
     """``{"tokens": int32 [batch, seq]}`` drawn from NumPy's generator
-    seeded with ``seed`` (host arrays: the engine takes NumPy prompts)."""
+    seeded with ``seed`` (host arrays: the engine takes NumPy prompts),
+    and a frontend arch's standard-normal ``patches`` or ``frames``
+    [batch, frontend_seq, frontend_dim] (float32 holding bf16 values)."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq),
-                                   dtype=np.int32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq),
+                                  dtype=np.int32)}
+    key = frontend_key(cfg)
+    if key is not None:
+        out[key] = bf16_values(rng.standard_normal(
+            (batch, cfg.frontend_seq, cfg.frontend_dim), dtype=np.float32))
+    return out
 
 
 def synthetic_request(cfg: ModelConfig, seq: int, seed: int = 0):
-    """One serving request: (tokens [seq] int32, frontend or None) — the
-    shapes ``ServeEngine.submit`` takes."""
-    return synthetic_batch(cfg, 1, seq, seed)["tokens"][0], None
+    """One serving request: (tokens [seq] int32, frontend [S_f, D_f] or
+    None) — the shapes ``ServeEngine.submit`` takes."""
+    b = synthetic_batch(cfg, 1, seq, seed)
+    key = frontend_key(cfg)
+    return b["tokens"][0], None if key is None else b[key][0]
+
+
+def _frontend(batch: dict):
+    return batch.get("patches", batch.get("frames"))
 
 
 # ---------------------------------------------------------------------------
@@ -82,8 +115,19 @@ def make_forward(cfg: ModelConfig, impl: Optional[Impl] = None):
     impl = _merged(cfg, impl)
 
     def fwd(params, batch):
-        return lm.forward(params, batch["tokens"], cfg=cfg, impl=impl)
+        return lm.forward(params, batch["tokens"], cfg=cfg, impl=impl,
+                          frontend_emb=_frontend(batch))
     return fwd
+
+
+def make_prefill_step(cfg: ModelConfig, impl: Optional[Impl] = None,
+                      ctx: Optional[int] = None):
+    impl = _merged(cfg, impl)
+
+    def prefill_step(params, batch):
+        return lm.prefill(params, batch["tokens"], cfg=cfg, impl=impl,
+                          frontend_emb=_frontend(batch), ctx=ctx)
+    return prefill_step
 
 
 # ---------------------------------------------------------------------------
@@ -109,12 +153,15 @@ def make_bucketed_prefill_step(cfg: ModelConfig, impl: Optional[Impl] = None,
     batch['tokens'] is [B, bucket] and ``length`` the count of real tokens,
     an int or a 0-d int32 tensor on the model's device (the serving
     engine's graphs feed a tensor, as the JAX engine feeds a traced
-    scalar); logits and caches are exact for the real tokens."""
+    scalar); logits and caches are exact for the real tokens.  A frontend
+    rides in the batch as in :func:`make_forward`; ``ctx`` must hold the
+    patch prefix too."""
     impl = _merged(cfg, impl)
 
     def prefill_step(params, batch, length):
         return lm.prefill(params, batch["tokens"], cfg=cfg, impl=impl,
-                          ctx=ctx, length=length)
+                          frontend_emb=_frontend(batch), ctx=ctx,
+                          length=length)
     return prefill_step
 
 

@@ -142,12 +142,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (region: "mlp_core")
+# MLPs (regions: "mlp_core", "mlp_gelu")
 # ---------------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """``gelu(x @ w_up + b_up) @ w_down + b_down`` with the tanh form of the
+    gelu, which is ``jax.nn.gelu``'s default (the erf form differs by
+    ~1e-4)."""
+    h = F.gelu(x @ w_up + b_up, approximate="tanh")
+    return h @ w_down + b_down
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,19 @@
 """Block-level OffloadableProgram over an LM architecture — the port of the
-JAX package's ``models/offload_program.py`` for the dense, MoE, SSM and
-hybrid decoders.
+JAX package's ``models/offload_program.py``.
 
 The planner plans over the model's block-level regions (``attn_core``,
-``moe_dispatch`` or ``mlp_core``, ``ssm_scan``, ``rglru_scan``), whose
+``moe_dispatch``, ``mlp_gelu`` or ``mlp_core``, ``conv_stem``,
+``ssm_scan``, ``rglru_scan``), whose
 ref/offload/hopper variants are the ones the model dispatches through, so
 the selected pattern IS the model's deploy configuration.  As in the JAX
 package, the regions' analysis arguments
 are the FULL architecture's per-layer tensors (meta tensors, s = 4096),
 while Step 4 measures ``forward`` on ``cfg.reduced()`` at ``batch`` x
-``seq`` — so the measured speedups are those of the reduced model.
+``seq`` — so the measured speedups are those of the reduced model.  A
+frontend arch's sample also holds its reduced ``patches`` or ``frames``,
+which ``build`` feeds to the forward.  (The JAX program feeds the tokens
+alone, and whisper's encoder then fails on the missing frames, so every
+JAX pattern of whisper-small fails; the port measures the model.)
 """
 from __future__ import annotations
 
@@ -45,14 +49,19 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
                 cfg, torch.Generator(device=dev).manual_seed(0)))
         return params_box[0]
 
+    key = F.frontend_key(cfg)
+
     def build(impl: Impl):
         merged = Impl({**F.default_impl(cfg), **impl})
 
-        def run(tokens):
+        def run(tokens, frontend=None):
             p = params()
             if tokens.is_meta:          # the planner's counting pass
                 p = tree_map(lambda t: torch.empty_like(t, device="meta"), p)
-            return F.make_forward(cfg, impl=merged)(p, {"tokens": tokens})
+            batch = {"tokens": tokens}
+            if frontend is not None:
+                batch[key] = frontend
+            return F.make_forward(cfg, impl=merged)(p, batch)
         return run
 
     # region analysis shapes: the FULL arch's per-layer tensors (the planner
@@ -83,12 +92,28 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
                               static_kwargs={"num_experts": e,
                                              "k": full.experts_per_token,
                                              "capacity": cap}))
+    elif full.d_ff and full.family == "audio":
+        # audio archs run a gelu MLP (dot -> gelu -> dot), not swiglu
+        x = meta((ANALYSIS_SEQ, full.d_model), bf16)
+        wu = meta((full.d_model, full.d_ff), bf16)
+        bu = meta((full.d_ff,), bf16)
+        wd = meta((full.d_ff, full.d_model), bf16)
+        bd = meta((full.d_model,), bf16)
+        regions.append(Region("mlp_gelu", variants("mlp_gelu")["ref"],
+                              (x, wu, bu, wd, bd), deploy_variant="offload"))
     elif full.d_ff:
         x = meta((ANALYSIS_SEQ, full.d_model), bf16)
         wg = meta((full.d_model, full.d_ff), bf16)
         wd = meta((full.d_ff, full.d_model), bf16)
         regions.append(Region("mlp_core", variants("mlp_core")["ref"],
                               (x, wg, wg, wd), deploy_variant="offload"))
+    if full.conv_stem:
+        xa = meta((1, full.frontend_seq, full.frontend_dim), bf16)
+        wc = meta((3, full.frontend_dim, full.d_model), bf16)
+        bc = meta((full.d_model,), bf16)
+        regions.append(Region("conv_stem", variants("conv_stem")["ref"],
+                              (xa, wc, bc), deploy_variant="offload",
+                              static_kwargs={"stride": 1}))
     if full.family == "ssm":
         di, n = full.d_inner, full.ssm_state
         a = meta((1, ANALYSIS_SEQ, di, n), bf16)
@@ -105,8 +130,13 @@ def make_lm_program(arch: str, batch: int = 2, seq: int = 128,
 
     def sample(seed: int, device: torch.device):
         g = torch.Generator().manual_seed(seed)
-        return (torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
-                              dtype=torch.int64).to(device),)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                               dtype=torch.int64).to(device)
+        if key is None:
+            return (tokens,)
+        frontend = torch.randn((batch, cfg.frontend_seq, cfg.frontend_dim),
+                               generator=g).to(torch.bfloat16)
+        return tokens, frontend.to(device)
 
     return OffloadableProgram(
         name=f"lm:{arch}", regions=regions, build=build, sample_inputs=sample,

@@ -24,13 +24,18 @@ that.  On the CPU they are the eager step functions.  Generations with
 equal keys share their graphs (the trace memo).
 
 Bucketed prefill: prompts are right-padded to power-of-two buckets
-(``factory.prefill_bucket``) and prefilled with their true ``length`` as a
-device tensor, so one graph serves every prompt length in its bucket.
-``prefill_traces`` counts one per (generation key, bucket) first use: one
-capture on a card, one first call on the CPU.
+(``factory.prefill_bucket``, capped at ctx less the request's frontend
+prefix) and prefilled with their true ``length`` as a device tensor, so
+one graph serves every prompt length in its bucket.  A request of a
+frontend arch carries its patch embeddings (paligemma-3b, an optional
+prefix of the prompt) or mel frames (whisper-small, required: its encoder
+runs inside the prefill) as ``frontend``; the prefill graphs are keyed by
+(bucket, frontend shape), as the JAX engine keys its compilations.
+``prefill_traces`` counts one per (generation key, bucket, frontend shape)
+first use: one capture on a card, one first call on the CPU.
 
-Admission control: ``submit()`` rejects requests whose prompt +
-max_new_tokens cannot fit the cache.
+Admission control: ``submit()`` rejects requests whose prompt + frontend
+prefix + max_new_tokens cannot fit the cache.
 
 Graceful degradation: every tick-path plan call runs under a runtime guard
 (``_plan_call``).  Each step also returns one device flag, "the logits are
@@ -56,8 +61,7 @@ the generation's own (``serving/graphs.py``), and ``offer_plan`` stages
 the generation for the next tick boundary.  The trace memo keeps the
 generations that serve, are pending or are rollback targets; the others
 (faulted ones included) leave it at the next swap or rollback, and their
-graphs and pool are freed once nothing else refers to them.  Multimodal
-frontends are not ported.
+graphs and pool are freed once nothing else refers to them.
 """
 from __future__ import annotations
 
@@ -122,6 +126,9 @@ class Request:
     tokens: np.ndarray               # prompt [S]
     max_new_tokens: int
     sampling: SamplingParams = GREEDY
+    # patch embeddings / mel frames (no batch dim; float32 holding bf16
+    # values), dropped when the request retires
+    frontend: Optional[np.ndarray] = None
     generated: list = field(default_factory=list)
     done: bool = False
     # ---- lifecycle stats (perf_counter seconds; -1 = not reached) ----
@@ -185,36 +192,54 @@ def _finite(logits: torch.Tensor) -> torch.Tensor:
 
 
 class _BucketedPrefill:
-    """A generation's bucketed prefill: one step per bucket, built (on a
-    card: warmed and captured into the generation's ``pool``) at the
-    bucket's first use.  ``prefill(tokens [1, bucket] int32, n)`` ->
-    (logits [1, 1, V], cache, finite flag)."""
+    """A generation's bucketed prefill: one step per (bucket, frontend
+    shape), built (on a card: warmed and captured into the generation's
+    ``pool``) at its first use.  ``prefill(tokens [1, bucket] int32, n,
+    frontend [1, S_f, D_f] float32 or None)`` -> (logits [1, 1, V], cache,
+    finite flag).  The frontend is one more fed input: on a card a static
+    device buffer of the graph, filled through a pinned staging buffer."""
 
     def __init__(self, engine: "ServeEngine", step, pool):
         self._engine = engine
         self._step = step
         self._pool = pool
+        self._key = F.frontend_key(engine.cfg)
         self._lock = threading.Lock()
-        self.steps: dict[int, StepGraph] = {}
+        self.steps: dict[tuple, StepGraph] = {}
 
-    def _fn(self, params, tokens, length):
-        logits, cache = self._step(params, {"tokens": tokens}, length)
+    def _fn(self, params, tokens, length, frontend=None):
+        batch = {"tokens": tokens}
+        if frontend is not None:
+            batch[self._key] = frontend
+        logits, cache = self._step(params, batch, length)
         return logits, cache, _finite(logits)
 
-    def warm(self, bucket: int) -> StepGraph:
+    def warm(self, bucket: int, fe_shape: Optional[tuple] = None) -> StepGraph:
         with self._lock:
-            step = self.steps.get(bucket)
+            step = self.steps.get((bucket, fe_shape))
             if step is None:
                 feeds = {"tokens": np.zeros((1, bucket), np.int32),
                          "length": np.asarray(bucket, np.int32)}
+                if fe_shape is not None:
+                    feeds["frontend"] = np.zeros((1, *fe_shape), np.float32)
                 step = self._engine._make_step(
                     self._fn, (self._engine.params,), feeds, pool=self._pool)
-                self.steps[bucket] = step
+                self.steps[bucket, fe_shape] = step
                 self._engine.prefill_traces += 1
             return step
 
-    def __call__(self, tokens: np.ndarray, n: int):
-        return self.warm(tokens.shape[1])(tokens, np.asarray(n, np.int32))
+    @staticmethod
+    def fed(tokens: np.ndarray, n: int, frontend: Optional[np.ndarray]):
+        """(the step's shape key, its fed inputs) for one prefill."""
+        fed = (tokens, np.asarray(n, np.int32))
+        if frontend is None:
+            return (tokens.shape[1], None), fed
+        return (tokens.shape[1], frontend.shape[1:]), (*fed, frontend)
+
+    def __call__(self, tokens: np.ndarray, n: int,
+                 frontend: Optional[np.ndarray] = None):
+        key, fed = self.fed(tokens, n, frontend)
+        return self.warm(*key)(*fed)
 
 
 class _Decode:
@@ -285,7 +310,7 @@ class PlanGeneration:
     """
     impl: Impl                          # merged pattern the steps dispatch
     key: tuple                          # canonical identity (search.impl_key)
-    prefill: _BucketedPrefill           # one graph per bucket
+    prefill: _BucketedPrefill           # one graph per (bucket, frontend)
     decode: _Decode                     # one graph at the slot count
     # (the generation's graphs share one memory pool of their own)
     generation: int = 0                 # assigned at install time
@@ -327,6 +352,9 @@ class ServeEngine:
         self._sample = make_sampler(seed)
         self.prefill_traces = 0
         self.buckets_seen: set[int] = set()
+        # (bucket, frontend shape) pairs prefilled: what prepare_plan warms
+        # so that a swapped-in generation captures nothing on the tick path
+        self._prefill_shapes: set[tuple] = set()
         self.cache = F.init_cache(cfg, slots, ctx, self.device)
         # the decode steps' restore point: a copy of the recurrent-state
         # leaves, taken before each decode while the serving generation is
@@ -409,7 +437,7 @@ class ServeEngine:
 
         Safe to call from another thread while the engine keeps ticking: it
         touches no serving state.  With ``warm`` (default) the decode step
-        and every prefill bucket the engine has served are built — on a
+        and every prefill shape the engine has served are built — on a
         card warmed on throwaway inputs and captured on this thread's side
         stream into the generation's own pool — so the post-swap tick
         captures nothing.  The trace memo holds what was built: preparing a
@@ -422,8 +450,9 @@ class ServeEngine:
 
     def _warm(self, gen: PlanGeneration) -> None:
         gen.decode.warm()
-        for bucket in sorted(set(self.buckets_seen)):
-            gen.prefill.warm(bucket)
+        for bucket, fe_shape in sorted(set(self._prefill_shapes),
+                                       key=lambda t: (t[0], t[1] or ())):
+            gen.prefill.warm(bucket, fe_shape)
 
     def offer_plan(self, prepared: PlanGeneration) -> None:
         """Stage ``prepared`` for installation at the next tick boundary.
@@ -488,9 +517,8 @@ class ServeEngine:
         """(step, its fed inputs) of ``gen``'s ``op`` for ``args``, the step
         built first if it was not (on a card: warmed and captured)."""
         if op == "prefill":
-            tokens, n = args
-            return (gen.prefill.warm(tokens.shape[1]),
-                    (tokens, np.asarray(n, np.int32)))
+            key, fed = gen.prefill.fed(*args)
+            return gen.prefill.warm(*key), fed
         return gen.decode.warm(), args
 
     def _plan_call(self, op: str, args: tuple, sampling: tuple):
@@ -683,35 +711,58 @@ class ServeEngine:
         return self._gen.plan_seconds
 
     # ------------------------------------------------------------------
+    def _request_n_front(self, frontend) -> int:
+        """Frontend tokens prepended to the decoder sequence (paligemma's
+        patch embeddings).  Whisper's frames feed the encoder, not the
+        decoder's prefix."""
+        return self.cfg.n_front if frontend is not None else 0
+
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               frontend: Optional[np.ndarray] = None) -> int:
         """Queue a request; returns its request id (int).
 
         * ``prompt`` (1-D int32 array, required) — non-empty prompt tokens.
         * ``max_new_tokens`` (int, 16) — generation stops after this many
           tokens.
         * ``sampling`` (SamplingParams, greedy).
-
-        Multimodal prefixes (the JAX engine's ``frontend``) come with the
-        frontends.
+        * ``frontend`` (array, None) — a frontend arch's non-text input,
+          without a batch dim: paligemma's patch embeddings [S_f, D_f]
+          (a prefix of the prompt; optional) or whisper's mel frames
+          [S_frames, D_f] (required).  Taken as float32 (pass bf16 values
+          as float32: NumPy has no bfloat16) and cast on the device.
 
         Raises ValueError if the request cannot fit the cache: prompt +
-        max_new_tokens must be <= ctx (an overflow would silently overwrite
-        the last cache slot)."""
+        frontend prefix + max_new_tokens must be <= ctx (an overflow would
+        silently overwrite the last cache slot); and for a frontend a model
+        takes none of, or a missing one an encoder-decoder model needs."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError(f"prompt must be a non-empty 1-D token array, "
                              f"got shape {prompt.shape}")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        need = prompt.size + max_new_tokens
+        if self.cfg.encoder_layers and frontend is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder arch: "
+                             "submit() requires `frontend` frames")
+        if frontend is not None:
+            if F.frontend_key(self.cfg) is None:
+                raise ValueError(f"{self.cfg.name} takes no frontend input")
+            frontend = np.asarray(frontend, np.float32)
+            if frontend.ndim != 2:
+                raise ValueError(f"frontend must be [S_f, D_f] (no batch "
+                                 f"dim), got shape {frontend.shape}")
+        n_front = self._request_n_front(frontend)
+        need = prompt.size + n_front + max_new_tokens
         if need > self.ctx:
             raise ValueError(
                 f"request needs {need} cache slots (prompt {prompt.size} + "
-                f"max_new_tokens {max_new_tokens}) but ctx={self.ctx}")
+                f"frontend {n_front} + max_new_tokens {max_new_tokens}) "
+                f"but ctx={self.ctx}")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, prompt, max_new_tokens, sampling=sampling or GREEDY)
+        req = Request(rid, prompt, max_new_tokens, sampling=sampling or GREEDY,
+                      frontend=frontend)
         req.submit_s = time.perf_counter()
         self.queue.append(req)
         return rid
@@ -725,7 +776,8 @@ class ServeEngine:
         req = self.active[slot]
         req.done = True
         req.finish_s = time.perf_counter()
-        self.finished.append(req)
+        req.frontend = None     # only the prefill reads it: do not pin the
+        self.finished.append(req)   # array for the engine's life
         self.finished_total += 1
         self.active[slot] = None
         self._temps[slot] = 0.0
@@ -741,26 +793,29 @@ class ServeEngine:
                 continue
             req = self.queue.popleft()
             req.slot_s = time.perf_counter()
+            n_front = self._request_n_front(req.frontend)
             n = req.tokens.size
-            bucket = F.prefill_bucket(n, self.ctx)
+            bucket = F.prefill_bucket(n, self.ctx - n_front)
             req.bucket = bucket
             req.admit_tick = self.ticks
             req.plan_generation = self.plan_generation
             self.buckets_seen.add(bucket)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :n] = req.tokens
+            fe = None if req.frontend is None else req.frontend[None]
+            self._prefill_shapes.add(_BucketedPrefill.fed(padded, n, fe)[0])
             # the graph's outputs are consumed (copied into the slot,
             # sampled) before any other graph replays: the shared-pool rule
             sp = req.sampling
             toks, one_cache = self._plan_call(
-                "prefill", (padded, n),
+                "prefill", (padded, n, fe),
                 ([req.rid], [0], [sp.temperature], [sp.top_k]))
             cache_insert(self.cache, one_cache, slot)
             first = int(toks[0])
             req.generated.append(first)
             req.admit_s = time.perf_counter()
             self.active[slot] = req
-            self.pos[slot] = n
+            self.pos[slot] = n + n_front
             self.last_tok[slot] = first
             self._rids[slot] = req.rid
             self._temps[slot] = sp.temperature
@@ -860,7 +915,8 @@ class ServeEngine:
         ``stats()`` aggregates lifecycle stats over *finished* requests:
         ``requests_finished``, ``generated_tokens``, ``ttft_s_mean`` /
         ``ttft_s_p50``, ``queue_wait_s_mean``, ``decode_tps_mean``, plus
-        ``prefill_traces`` (one per (generation, bucket) first use) and
+        ``prefill_traces`` (one per (generation, bucket, frontend shape)
+        first use) and
         ``buckets`` (sorted bucket lengths seen).
 
         ``stats(window=N)`` is the windowed in-flight view over the last N

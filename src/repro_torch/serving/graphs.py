@@ -4,8 +4,10 @@ and its batched decode step.
 
 A :class:`StepGraph` holds one step function ``fn(*fixed, *fed)``.
 ``fixed`` are tensors whose storage stays put for the graph's life (the
-parameters, the engine's live cache); ``fed`` are the small per-call host
-inputs (tokens, positions, a prompt length), NumPy arrays of fixed shapes.
+parameters, the engine's live cache); ``fed`` are the per-call host inputs
+(tokens, positions, a prompt length, a frontend's patch embeddings or mel
+frames), NumPy arrays of fixed shapes.  So a frontend model's prefill is
+one graph per (bucket, frontend shape), whisper's encoder inside it.
 
 On a card, construction
 

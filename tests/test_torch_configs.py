@@ -1,6 +1,7 @@
 """The port's config registry against the JAX package's: the six configs of
 slice 9 (three dense decoders, three MoE decoders) field for field, the
-analytic parameter counts, the registry lists, and the reduced dense
+analytic parameter counts of every arch (the two frontends' in
+tests/test_torch_frontends.py too), the registry lists, and the reduced dense
 configs' templates and forward logits on the JAX parameters carried over
 with ``repro_torch.models.convert``.
 
@@ -41,10 +42,9 @@ def test_config_and_reduced_config_equal_jax(arch):
 
 
 def test_registry_lists_follow_jax():
-    """Every JAX arch the port builds, in the JAX order; the two frontend
-    archs wait for their slice; mixtral stays a bonus arch."""
-    assert B.ARCH_IDS == tuple(a for a in JB.ARCH_IDS
-                               if a not in ("paligemma-3b", "whisper-small"))
+    """Every JAX arch, in the JAX order, the two frontend archs included;
+    mixtral stays a bonus arch."""
+    assert B.ARCH_IDS == JB.ARCH_IDS
     assert B.BONUS_ARCH_IDS == JB.BONUS_ARCH_IDS == ("mixtral-8x7b",)
     assert {get_config(a).name for a in PORTED} == set(PORTED)
 

@@ -817,7 +817,8 @@ def test_capture_on_a_worker_thread_while_the_engine_replays_on_cuda(
         twin.step()
     assert "err" not in box, box.get("err")
     gen = box["gen"]
-    assert gen.decode.step.graph is not None and set(gen.prefill.steps) == {8, 16}
+    assert gen.decode.step.graph is not None and set(gen.prefill.steps) == {
+        (8, None), (16, None)}
     assert gen.decode._pool != eng._gen.decode._pool   # a pool of its own
     eng.offer_plan(gen)
     for e in (eng, twin):
@@ -891,3 +892,131 @@ def test_a_run_timeout_drains_the_device_on_cuda(cuda_device):
     assert torch.cuda.current_stream(cuda_device).query()
     own = time_callable(lambda t: t * 2, (x,), warmup=1, reps=3)
     assert own.ok and len(own.runs) == 3
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the frontends (no kernel of their own; flash in two new regimes)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_flash_bidirectional_at_whisper_encoder_shape_on_cuda(cuda_device):
+    """whisper-small's encoder: [1, 12/12, 1,500, 64], causal=False, S no
+    multiple of a tile."""
+    rng = np.random.default_rng(1500)
+    q, k, v = (_normal(rng, (1, 12, 1500, 64), torch.bfloat16, cuda_device)
+               for _ in range(3))
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [272, 768, 2080])
+def test_flash_paligemma_ragged_causal_gqa_on_cuda(cuda_device, s):
+    """paligemma-3b's prefill: 8 query heads over 1 kv head of width 256,
+    causal over the 256-patch prefix and a bucket (16, 512, 1,824)."""
+    rng = np.random.default_rng(s)
+    q = _normal(rng, (1, 8, s, 256), torch.bfloat16, cuda_device)
+    k = _normal(rng, (1, 1, s, 256), torch.bfloat16, cuda_device)
+    v = _normal(rng, (1, 1, s, 256), torch.bfloat16, cuda_device)
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+# whisper serves over ref attention (its cross-attention has s != sk)
+FRONTEND_HOPPER = {"whisper-small": {}, "paligemma-3b": {"attn_core": "hopper"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FRONTEND_HOPPER))
+def test_prefill_replays_with_a_frontend_buffer_equal_the_eager_step_on_cuda(
+        cuda_device, arch):
+    """One prefill graph per (bucket, frontend shape): replays fed other
+    frontends and lengths give the eager step's logits and cache leaves
+    (``xkv`` included) bit for bit; the engine and an eager twin serve the
+    same greedy streams with frontends."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.regions import Impl
+    from repro_torch.models import factory as F
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.graphs import EagerStep
+
+    class EagerTwin(ServeEngine):
+        def _make_step(self, fn, fixed, feeds, **_):
+            return EagerStep(fn, fixed)
+
+    cfg = get_config(arch).reduced()
+    params = F.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0))
+    impl = Impl({**F.default_impl(cfg), **FRONTEND_HOPPER[arch]})
+    ctx = 16 + cfg.n_front + 8
+    eng = ServeEngine(cfg, params, slots=2, ctx=ctx, impl=impl)
+    prefill = F.make_bucketed_prefill_step(cfg, impl=impl, ctx=ctx)
+    key = F.frontend_key(cfg)
+    for seed, n in ((1, 13), (2, 16), (3, 9)):
+        tokens, fe = F.synthetic_request(cfg, n, seed=seed)
+        padded = _padded(n, 16, seed)
+        logits, cache, finite = eng._gen.prefill(padded, n, fe[None])
+        assert bool(finite)
+        e_logits, e_cache = prefill(
+            params, {"tokens": torch.from_numpy(padded).to(cuda_device),
+                     key: torch.from_numpy(fe[None]).to(cuda_device)},
+            torch.tensor(n, dtype=torch.int32, device=cuda_device))
+        assert torch.equal(logits, e_logits), seed
+        for a, b in zip(tree_leaves(cache), tree_leaves(e_cache)):
+            assert torch.equal(a, b), seed
+    assert eng.prefill_traces == 1
+    requests = [F.synthetic_request(cfg, n, seed=10 + n) for n in (3, 12, 7)]
+    streams = []
+    for engine in (eng, EagerTwin(cfg, params, slots=2, ctx=ctx, impl=impl)):
+        for tokens, fe in requests:
+            engine.submit(tokens, max_new_tokens=6, frontend=fe)
+        streams.append([r.generated for r in engine.run_to_completion()])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_whisper_encoder_launches_flash_and_cross_attention_refuses_it_on_cuda(
+        cuda_device):
+    """The reduced encoder under attn_core=hopper launches the kernel once
+    a layer and agrees with ref within 3x the offload-vs-ref floor (at
+    least 0.05, chip_smoke.py's rule); a prefill under it raises at the
+    cross-attention, with no plain version run in the kernel's place."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.regions import Impl
+    from repro_torch.models import factory as F
+    from repro_torch.models import lm
+    cfg = get_config("whisper-small").reduced()
+    params = F.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0))
+    tokens, frames = F.synthetic_request(cfg, 5, seed=0)
+    frames = torch.from_numpy(frames[None]).to(cuda_device)
+    out = {}
+    for variant in ("offload", "ref", "hopper"):
+        before = FA.flash_attention.launches
+        out[variant] = lm.encode(params, frames, cfg=cfg,
+                                 impl=Impl({"attn_core": variant}))
+        torch.cuda.synchronize()
+    assert FA.flash_attention.launches - before == cfg.encoder_layers
+    floor = float((out["offload"] - out["ref"]).abs().max())
+    assert float((out["hopper"] - out["ref"]).abs().max()) <= max(
+        3 * floor, 0.05)
+    calls = []
+    plain = FA.flash_attention_plain
+    FA.flash_attention_plain = lambda *a, **kw: (calls.append(1),
+                                                 plain(*a, **kw))[1]
+    try:
+        step = F.make_bucketed_prefill_step(
+            cfg, impl=Impl({"attn_core": "hopper"}), ctx=16)
+        with pytest.raises(ValueError, match="self-attention"):
+            step(params, {"tokens": torch.from_numpy(_padded(5, 8, 0)).to(
+                cuda_device), "frames": frames}, 5)
+    finally:
+        FA.flash_attention_plain = plain
+    assert calls == []

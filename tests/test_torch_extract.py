@@ -49,7 +49,7 @@ from repro_torch.core.plan_cache import (PlanCache, measurement_cache_key,
 from repro_torch.core.planner import AutoOffloader, PlannerConfig
 from repro_torch.core.program import Region, meta
 from repro_torch.core.regions import (Impl, register_variant,
-                                      unregister_variant)
+                                      unregister_variant, variants)
 from repro_torch.core.resources import precompile
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels.ref import rmsnorm_plain
@@ -82,12 +82,19 @@ COVERAGE = {
     "moe_dispatch": {
         "positive": ["test_torch_moe_dispatch_rediscovered"],
         "negative": ["test_torch_moe_unbounded_routing_rejected"]},
+    "mlp_gelu": {
+        "positive": ["test_gelu_mlp_rediscovered"],
+        "negative": ["test_gelu_mlp_escaping_intermediate_rejected"]},
+    "conv_stem": {
+        "positive": ["test_conv_stem_rediscovered"],
+        "negative": ["test_dilated_conv_rejected_with_diagnostic"]},
     "rmsnorm": {
         "positive": ["test_rmsnorm_rediscovered"],
         "negative": ["test_rmsnorm_f16_rejected_by_dtype_gate"]},
 }
 
-ARCHS = ("mistral-nemo-12b", "falcon-mamba-7b", "recurrentgemma-2b")
+ARCHS = ("mistral-nemo-12b", "falcon-mamba-7b", "recurrentgemma-2b",
+         "whisper-small", "paligemma-3b")
 SEQ = 32
 UNIVERSE = frozenset(E.FAMILIES)
 LOGIT_TOL = 1e-5
@@ -102,15 +109,24 @@ def _tokens(vocab: int, seq: int = SEQ) -> np.ndarray:
 def _pair(arch: str, dtype: str = "bfloat16"):
     """(jax cfg, jax fn, jax args, torch cfg, torch fn, torch args): the
     arch's reduced all-ref forward in both packages, on the same weights
-    (the JAX draw, converted) and tokens."""
+    (the JAX draw, converted) and tokens; a frontend arch's synthetic
+    patches or frames (bf16 values) are closed over, as the JAX tests'
+    ``_trace_arch`` does."""
     jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype)
     tcfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
     jparams = JF.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     tok = _tokens(tcfg.vocab_size)
+    key = F.frontend_key(tcfg)
+    jkw, tkw = {}, {}
+    if key is not None:
+        fe = F.synthetic_batch(tcfg, 1, SEQ, seed=1)[key]
+        jkw, tkw = {key: jnp.asarray(fe, jnp.bfloat16)}, {
+            key: torch.from_numpy(fe)}
     jfwd, tfwd = JF.make_forward(jcfg, JImpl()), F.make_forward(tcfg, Impl())
-    return (jcfg, lambda t: jfwd(jparams, {"tokens": t}), (jnp.asarray(tok),),
-            tcfg, lambda t: tfwd(tparams, {"tokens": t}),
+    return (jcfg, lambda t: jfwd(jparams, {"tokens": t, **jkw}),
+            (jnp.asarray(tok),),
+            tcfg, lambda t: tfwd(tparams, {"tokens": t, **tkw}),
             (torch.from_numpy(tok),))
 
 
@@ -619,7 +635,9 @@ def test_loop_extraction_launcher_on_the_cpu(capsys):
     out = loop_extraction.main(["--device", "cpu", "--reduced"])
     precision, recall, per_family = out["accuracy"][1:]
     assert precision == recall == 1.0
-    assert all(s["tp"] >= 1 for s in per_family.values())
+    assert set(per_family) == UNIVERSE and len(UNIVERSE) == 9
+    assert all(s["tp"] >= 1 and s["precision"] == s["recall"] == 1.0
+               for s in per_family.values())
     assert all(r["regions"] >= 2 and r["cached_replan"]
                for r in out["autoplan"])
     assert out["stitch"]["fused_key"] != out["stitch"]["split_key"]
@@ -848,3 +866,163 @@ def test_top_k_not_fed_by_a_router_is_no_site_of_moe():
     report = E.extract(lambda t: torch.topk(t.exp(), 2).values.sum()
                        + MOE.top_k(t, 3)[0].sum(), (x,), name="topk")
     assert not report.matches and not report.rejections
+
+
+# ---------------------------------------------------------------------------
+# mlp_gelu and conv_stem: whisper's blocks
+# ---------------------------------------------------------------------------
+def _gelu_mlp_args(dtype=torch.bfloat16):
+    rng = np.random.default_rng(4)
+    shapes = ((32, 64), (64, 128), (128,), (128, 64), (64,))
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32)
+                                  * 0.3).to(dtype) for sh in shapes)
+
+
+def test_gelu_mlp_rediscovered():
+    """The intent of JAX's ``test_gelu_mlp_rediscovered``, for both the
+    ``ref`` and the float32-accumulating ``offload`` forms; the JAX
+    extractor's match on the same inputs has the same arguments."""
+    args = _gelu_mlp_args()
+    jreport = JE.extract(
+        lambda x, wu, bu, wd, bd: jax.nn.gelu(x @ wu + bu) @ wd + bd,
+        tuple(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in args),
+        name="gelu_mlp")
+    for fn in (L.gelu_mlp, variants("mlp_gelu")["offload"]):
+        report = E.extract(fn, args, name="gelu_mlp")
+        hits = _legal(report, "mlp_gelu")
+        assert len(hits) == 1, report.summary()
+        x, wu, bu, wd, bd = hits[0].invars
+        assert E._shape(wu) == (64, 128) and E._shape(bu) == (128,)
+        assert E._shape(wd) == (128, 64) and E._shape(bd) == (64,)
+        assert E._shape(x) == (32, 64)
+        assert hits[0].arg_shapes() == _legal(jreport, "mlp_gelu")[0] \
+            .arg_shapes()
+    # the erf gelu is another function than the variants compute
+    report = E.extract(lambda x, wu, bu, wd, bd: Fn.gelu(x @ wu + bu) @ wd
+                       + bd, args, name="erf_gelu")
+    assert not report.matches
+
+
+def test_gelu_mlp_escaping_intermediate_rejected():
+    """Returning the gelu activation alongside the MLP output makes a
+    covered intermediate escape — recognized but never legal, and the
+    report carries a structured legality rejection for it."""
+    def leaky(x, wu, bu, wd, bd):
+        g = Fn.gelu(x @ wu + bu, approximate="tanh")
+        return g @ wd + bd, g
+
+    report = E.extract(leaky, _gelu_mlp_args(), name="gelu_leak")
+    matches = [m for m in report.matches if m.family == "mlp_gelu"]
+    assert matches, report.summary()
+    assert not matches[0].legal and "escapes" in matches[0].reason
+    rejs = [r for r in report.rejections
+            if r.family == "mlp_gelu" and r.stage == "legality"]
+    assert rejs and rejs[0].reason == matches[0].reason
+
+
+def _stem_args(dtype=torch.bfloat16):
+    rng = np.random.default_rng(1)
+    shapes = ((1, 64, 8), (3, 8, 16), (16,))
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                 .to(dtype) for sh in shapes)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_stem_rediscovered(stride):
+    """The intent of JAX's ``test_conv_stem_rediscovered``: the stem's
+    ``ref`` at stride 1 and 2 (the odd element of SAME's padding on the
+    high side), with its stride a static kwarg and the arguments of JAX's
+    match; the rebuilt program with ``offload`` substituted."""
+    args = _stem_args()
+
+    def stem(x, w, b):
+        return variants("conv_stem")["ref"](x, w, b, stride=stride)
+
+    report = E.extract(stem, args, name="stem")
+    hits = _legal(report, "conv_stem")
+    assert len(hits) == 1, report.summary()
+    x, w, b = hits[0].invars
+    assert E._shape(x) == (1, 64, 8)
+    assert E._shape(w) == (3, 8, 16) and E._shape(b) == (16,)
+    assert hits[0].static_kwargs == {"stride": stride}
+    jreport = JE.extract(
+        lambda x, w, b: jax.nn.gelu(jax.lax.conv_general_dilated(
+            x, w, window_strides=(stride,), padding="SAME",
+            dimension_numbers=("NHC", "HIO", "NHC")) + b),
+        tuple(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in args),
+        name="stem")
+    jhit = _legal(jreport, "conv_stem")[0]
+    assert hits[0].arg_shapes() == jhit.arg_shapes()
+    assert jhit.static_kwargs == hits[0].static_kwargs
+    prog = E.discover(stem, args, name="stem")
+    ref = stem(*args).float()
+    torch.testing.assert_close(prog.build(Impl())(*args).float(), ref,
+                               rtol=0, atol=0)
+    sub = prog.build(Impl({"conv_stem": "offload"}))
+    assert _region_calls(sub) == 1
+    scale = float(ref.abs().max())
+    assert float((sub(*args).float() - ref).abs().max()) / scale < SUB_RTOL
+
+
+def test_dilated_conv_rejected_with_diagnostic():
+    """A dilated conv is recognized as a near-miss, not silently skipped:
+    the report carries a structured Rejection naming the op and the
+    dilation that disqualified it.  A 2-D conv and a grouped one are
+    rejected with their own diagnostics."""
+    x, w, b = _stem_args()
+
+    def dilated(x, w, b):
+        y = Fn.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), padding=2,
+                      dilation=2)
+        return Fn.gelu(y.transpose(1, 2) + b, approximate="tanh")
+
+    report = E.extract(dilated, (x, w, b), name="stem_dilated")
+    assert not [m for m in report.matches if m.family == "conv_stem"]
+    rejs = [r for r in report.rejections if r.family == "conv_stem"]
+    assert len(rejs) == 1, report.summary()
+    assert rejs[0].stage == "recognizer"
+    assert rejs[0].primitive == "convolution"
+    assert "dilat" in rejs[0].reason
+    assert rejs[0].reason in report.summary()
+
+    def conv2d(x, w, b):
+        y = Fn.conv2d(x.transpose(1, 2)[..., None], w.permute(2, 1, 0)[
+            ..., None], padding=(1, 0))
+        return Fn.gelu(y[..., 0].transpose(1, 2) + b, approximate="tanh")
+
+    def grouped(x, w, b):
+        y = Fn.conv1d(x.transpose(1, 2), w.permute(2, 1, 0)[:, :4],
+                      padding=1, groups=2)
+        return Fn.gelu(y.transpose(1, 2) + b, approximate="tanh")
+
+    for fn, why in ((conv2d, "only 1-D"), (grouped, "grouped")):
+        report = E.extract(fn, (x, w, b), name=fn.__name__)
+        assert not report.matches, report.summary()
+        rejs = [r for r in report.rejections if r.family == "conv_stem"]
+        assert len(rejs) == 1 and why in rejs[0].reason, report.summary()
+
+
+def test_discovered_whisper_rebuilds_and_substitutes():
+    """Unannotated reduced whisper-small (its frames closed over): the
+    stem's two convolutions, the encoder's and the decoder's gelu MLPs are
+    found; the rebuilt program equals the captured one; with ``offload``
+    substituted for both families it stays within the substitution
+    tolerance of the JAX all-ref forward."""
+    jcfg, jfn, jargs, tcfg, tfn, targs = _pair("whisper-small")
+    prog = E.discover(tfn, targs, name="whisper")
+    found = prog.extraction
+    assert len(_legal(found, "conv_stem")) == 2
+    assert len(_legal(found, "mlp_gelu")) == (tcfg.encoder_layers
+                                              + tcfg.num_layers)
+    assert sorted(m.static_kwargs["stride"]
+                  for m in _legal(found, "conv_stem")) == [1, 2]
+    assert {"attn_core", "conv_stem", "mlp_gelu", "rmsnorm"} <= {
+        r.name for r in prog.regions}
+    torch.testing.assert_close(prog.build(Impl())(*targs), tfn(*targs),
+                               rtol=0, atol=0)
+    ref = np.asarray(jfn(*jargs), np.float32)
+    mixed = prog.build(Impl({"mlp_gelu": "offload", "conv_stem": "offload"}))
+    assert _region_calls(mixed) == 2 + tcfg.encoder_layers + tcfg.num_layers
+    sub = mixed(*targs).numpy()
+    scale = float(np.max(np.abs(ref))) + 1e-9
+    assert float(np.max(np.abs(ref - sub))) / scale < SUB_RTOL

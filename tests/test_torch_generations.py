@@ -226,7 +226,7 @@ def test_prepare_plan_without_warm_builds_at_first_use():
     eng.offer_plan(gen)
     eng.submit(np.arange(1, 13, dtype=np.int32), max_new_tokens=2)
     eng.run_to_completion()
-    assert set(gen.prefill.steps) == {16} and gen.decode.step is not None
+    assert set(gen.prefill.steps) == {(16, None)} and gen.decode.step is not None
     assert eng.prefill_traces == 2
 
 

@@ -144,3 +144,95 @@ def test_nested_loops_multiply_trip_counts():
     assert ana.loop_count == 2
     assert ana.max_trip == 15
     assert ana.flops == 15 * 128
+
+
+# ---------------------------------------------------------------------------
+# Convolutions and gelu (whisper's conv stem and gelu MLPs)
+# ---------------------------------------------------------------------------
+# whisper-small's first stem layer: 3,000 mel frames of 80 bins into 768
+WHISPER_STEM = ((1, 3000, 80), (3, 80, 768), (768,))
+
+
+def _stem_args(meta_fn, dtype):
+    return tuple(meta_fn(shape, dtype) for shape in WHISPER_STEM)
+
+
+def test_conv_stem_counts_two_flops_per_product_of_k_cin():
+    """Each output element of the stem sums K x Cin = 3 x 80 products; the
+    bias add is 1 flop and the gelu 1 transcendental per output element."""
+    import repro_torch.models.blocks  # noqa: F401 (registers conv_stem)
+    from repro_torch.core.program import meta
+    from repro_torch.core.regions import variants
+
+    out = 3000 * 768
+    for stride in (1, 2):
+        for variant in ("ref", "offload"):
+            ana = TI.analyze_region(
+                lambda x, w, b, v=variant, s=stride: variants(
+                    "conv_stem")[v](x, w, b, stride=s),
+                *_stem_args(meta, torch.bfloat16))
+            n = out // stride
+            assert ana.flops == 2 * n * 3 * 80 + n, (variant, stride)
+            assert ana.transcendentals == n
+            assert ana.unclassified == {}
+    conv = TI.analyze_region(
+        lambda x, w: torch.nn.functional.conv1d(x, w, padding=1),
+        meta((1, 80, 3000), torch.bfloat16), meta((768, 80, 3), torch.bfloat16))
+    assert conv.flops == 2 * out * 3 * 80
+    grouped = TI.analyze_region(
+        lambda x, w: torch.nn.functional.conv1d(x, w, padding=1, groups=4),
+        meta((1, 80, 3000), torch.bfloat16), meta((768, 20, 3), torch.bfloat16))
+    assert grouped.flops == 2 * out * 3 * 20
+
+
+def test_conv_stem_count_is_1_256_of_jax_at_whisper_full_shape():
+    """The known reference difference: the JAX walker takes a conv's
+    reduction size as ``prod(rhs.shape[2:]) * rhs.shape[1]``, an OIH
+    reading of the stem's HIO kernel [3, 80, 768]: 768 x 80 = 61,440 where
+    the true size is 3 x 80 = 240, so JAX counts the convolution 256x
+    over (2.831e11 flops against 1.106e9).  The port counts K x Cin."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.regions import variants as jax_variants
+    from repro.models import blocks as _jb  # noqa: F401 (registers conv_stem)
+    from repro_torch.core.program import meta
+    import repro_torch.models.blocks  # noqa: F401
+    from repro_torch.core.regions import variants
+
+    def sds(shape, dtype):
+        return jax.ShapeDtypeStruct(shape, dtype)
+
+    jconv = JI.analyze_region(
+        lambda x, w: jax.lax.conv_general_dilated(
+            x, w, window_strides=(1,), padding="SAME",
+            dimension_numbers=("NHC", "HIO", "NHC")),
+        *_stem_args(sds, jnp.bfloat16)[:2])
+    tconv = TI.analyze_region(
+        lambda x, w: torch.nn.functional.conv1d(
+            x.transpose(1, 2), w.permute(2, 1, 0), padding=1),
+        *_stem_args(meta, torch.bfloat16)[:2])
+    assert jconv.flops == 2 * 3000 * 768 * 768 * 80 == pytest.approx(2.831e11,
+                                                                     rel=1e-3)
+    assert tconv.flops == 2 * 3000 * 768 * 3 * 80 == pytest.approx(1.106e9,
+                                                                   rel=1e-3)
+    assert tconv.flops / jconv.flops == 1 / 256
+    # the whole region: the convolution dominates both counts; the bias add
+    # (and JAX's elementwise gelu) add ~0.2% to the port's
+    jreg = JI.analyze_region(
+        lambda x, w, b: jax_variants("conv_stem")["ref"](x, w, b, stride=1),
+        *_stem_args(sds, jnp.bfloat16))
+    treg = TI.analyze_region(
+        lambda x, w, b: variants("conv_stem")["ref"](x, w, b, stride=1),
+        *_stem_args(meta, torch.bfloat16))
+    assert jreg.flops == pytest.approx(2.831e11, rel=1e-3)
+    assert treg.flops / jreg.flops == pytest.approx(1 / 256, rel=5e-3)
+    assert treg.boundary_bytes == jreg.boundary_bytes
+
+
+def test_gelu_counts_as_a_transcendental():
+    x = torch.empty(16, 3072, device="meta")
+    for approximate in ("tanh", "none"):
+        ana = TI.analyze_region(
+            lambda a: torch.nn.functional.gelu(a, approximate=approximate), x)
+        assert ana.transcendentals == x.numel()
+        assert ana.flops == 0 and ana.unclassified == {}

@@ -108,19 +108,23 @@ def test_config_and_templates_mirror_jax():
 def test_layer_kinds_other_than_attention_raise():
     """The SSM and RG-LRU kinds are ported (tests/test_torch_recurrent.py),
     and so are MoE layers (tests/test_torch_moe.py): an MoE config builds,
-    its attention layers' FFN routed over the experts.  Frontends and
-    encoders still raise, naming the slice that brings them, and an
-    unknown kind is refused."""
+    its attention layers' FFN routed over the experts.  So do the
+    frontends and encoders (tests/test_torch_frontends.py): a patch
+    projection, and a cross-attending layer's ``xattn`` weights and ``xkv``
+    cache.  Only an unknown kind is refused."""
     base = get_config(ARCH).reduced()
     moe = lm.model_template(dataclasses.replace(base, num_experts=4,
                                                 experts_per_token=2))
     assert moe["stack"]["l0"]["ffn"]["w_gate"].shape == (2, 4, 64, 128)
     assert moe["stack"]["l0"]["ffn"]["router"].shape == (2, 64, 4)
-    for over in ({"frontend": "siglip_stub", "frontend_seq": 4,
-                  "frontend_dim": 64},
-                 {"encoder_layers": 2, "cross_attention": True}):
-        with pytest.raises(NotImplementedError, match="frontends"):
-            lm.cache_template(dataclasses.replace(base, **over), 1, 8)
+    vlm = dataclasses.replace(base, frontend="siglip_stub", frontend_seq=4,
+                              frontend_dim=64)
+    assert lm.model_template(vlm)["w_front"].shape == (64, 64)
+    encdec = dataclasses.replace(base, encoder_layers=2, encoder_seq=8,
+                                 cross_attention=True)
+    assert "xattn" in lm.model_template(encdec)["stack"]["l0"]
+    assert lm.cache_template(encdec, 1, 8)["stack"]["l0"]["xkv"][
+        "k"].shape == (2, 1, 2, 8, 16)
     with pytest.raises(ValueError, match="unknown layer kind"):
         lm.model_template(dataclasses.replace(base, layer_pattern=("moe",)))
     assert lm.model_template(dataclasses.replace(base, family="ssm"))

@@ -15,9 +15,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    card, with the stated tolerance, at every shape phases 4 to 16 give it
    (the paper's full sizes, MRI-Q's bench size, the six prefill buckets,
    the planners' reduced models, paligemma's three causal S = 256 +
-   bucket and, row 3w, whisper's bidirectional encoder attention at [1,
-   12/12, 1,500, 64], timed beside SDPA) and at one shape off the kernel's
-   grain
+   bucket, timed beside SDPA with ``enable_gqa`` and the same causal
+   mask as row 3p, and, row 3w, whisper's bidirectional encoder attention
+   at [1, 12/12, 1,500, 64], timed beside SDPA) and at one shape off the
+   kernel's grain
    (FIR: N=4000, where the default block_n 512 is clamped to 500; MRI-Q:
    300 x 200, ragged in both loops; the scans: S=9 and D=300, no multiple
    of a tile; rmsnorm: 9 rows of D=300, off the 16-byte grain); times
@@ -146,9 +147,17 @@ Phases, each printed as it runs; any failure exits non-zero:
    serves the 3 requests of phase 6 as phase 6 does, with
    ``attn_core=hopper`` over the planned pattern (the expert-choice
    ``moe_ffn=offload`` default underneath); ``flash_attention`` must
-   launch.  The prefill logits' noise floor also takes attention in 2 x 2
-   chunks (expert choice turns a one-ulp difference into another pick at
-   an expert's capacity boundary, at every bucket).  Then one full-width
+   launch.  Expert choice turns a one-ulp difference into another pick at
+   an expert's capacity boundary, so the prefill is held by the rule of
+   ``models/moe_check.py`` instead of the logits alone, on the six draws
+   of its seed rule (``DRAWS``: 2,060 / 300 / 9 tokens from seeds 100-105):
+   hopper on ref's own attention inputs (2e-2); the logits with every
+   expert-choice layer on ref's picks within max(3 x floor, 0.05), the
+   floor being offload and attention in 2 x 2 chunks on the same picks;
+   routing freely, the logits within the same rule where no pick flips,
+   else the router's logits at the first layer that flips within 3x the
+   floors' at that layer.  Each draw's flips per layer are printed.  Then
+   one full-width
    layer's routed block at 2,048 tokens (capacity 640, expert 0 favoured
    so that tokens drop): ``moe_dispatch`` offload against ref, within
    ``MOE_TOL``.  Then the unannotated reduced
@@ -176,6 +185,16 @@ Phases, each printed as it runs; any failure exits non-zero:
    256, attention over 272 / 768 / 2,080 positions; 4 slots at ctx 2,080)
    as phase 6 does, with ``attn_core=hopper`` over the planned pattern;
    ``flash_attention`` must launch.
+17. launchers — the slice-11 entry points, each through its ``main``
+   with small budgets and reps on a temporary plan cache: ``quickstart``
+   (twice: the second run is a cache hit), ``offload_fir`` and
+   ``offload_mriq`` (their hopper kernels held against ``fir_ref`` /
+   ``mriq_ref``), ``offload_transformer``, ``serve_lm`` at full width on
+   recurrentgemma-2b, and ``launch.run`` over the conditions and kernels
+   sections with ``--json`` into a temporary directory; every ``hopper``
+   row of ``kernel_bench`` must have launched its kernel; the documents
+   are read back, and ``trend`` runs over them with no baseline and
+   against themselves (both exit 0).  Its launches join the kernels line.
 
 Phases 6, 8, 9, 14, 15 and 16 print the decode step's device time beside
 its weight-streaming bound: every weight the step reads and the whole
@@ -209,13 +228,15 @@ import time
 import traceback
 from pathlib import Path
 
-# published H100 SXM peaks at the full 700 W limit (NVIDIA data sheet):
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12      # tensor cores, dense
-# the special-function units retire 16 sines/cosines/exps per clock per SM
-# against 128 FP32 FMAs (256 flops): 1/16 of the FP32 flop rate
-SFU_OPS_PER_S = FP32_FLOPS_PER_S / 16
+ROOT = Path(__file__).resolve().parent
+# the script runs as ``python3 chip_smoke.py`` from the root of a checkout,
+# with no PYTHONPATH; outside a checkout the import below fails
+sys.path.insert(0, str(ROOT / "src"))  # sys-path: run alone, see above
+# the published H100 SXM peaks at the full 700 W limit, from the port's one
+# module of the card's figures
+from repro_torch.launch.constants import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, SFU_RATE as SFU_OPS_PER_S)
 
 ARCH = "mistral-nemo-12b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -253,10 +274,10 @@ REGION_KERNEL = {"attn_core": "flash_attention", "ssm_scan": "ssm_scan",
 # runs the recurrence as an associative scan, hopper carries float32 state
 # step by step.  So the tolerance is relative to the same noise measured in
 # this run, between two plain versions, offload (larger chunks, float32)
-# against ref: at most 3x it, and never below 0.05.  A wrong mask, head,
-# tile or time step moves the logits by O(1).
-LOGIT_NOISE_FACTOR = 3.0
-LOGIT_TOL_MIN = 0.05
+# against ref: at most LOGIT_NOISE_FACTOR (3x) it, and never below
+# LOGIT_TOL_MIN (0.05), the constants of models/moe_check.py, whose MoE
+# rule applies the same bound.  A wrong mask, head, tile or time step
+# moves the logits by O(1).
 EXTRACT_PROMPT = 512     # phase 10: one query and one key chunk per layer
 # phase 15: whisper-small at full width and depth, 4 slots at ctx 512; its
 # encoder attends over 1,500 positions in 12 heads of width 64
@@ -298,8 +319,10 @@ DECODE_FIRST_MS = 0.2099
 # C-entry launches (PERF.md)
 RGLRU_FIRST_MS = 0.1191
 FIR_FIRST_MS = 0.0148
-
-ROOT = Path(__file__).resolve().parent
+# phase 17: quickstart's image side (its hist ref walks every pixel) and
+# the timing reps of the launchers' plans
+QUICKSTART_SIZE = 64
+LAUNCHER_REPS = 3
 
 
 _START = time.perf_counter()
@@ -598,7 +621,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps import mriq as mriq_app
     from repro_torch.apps import tdfir as tdfir_app
     from repro_torch.configs.paper_apps import MRIQ_BENCH, MRIQ_FULL, TDFIR_FULL
@@ -625,6 +647,8 @@ def main() -> int:
     from repro_torch.models import lm
     from repro_torch.models.lm import layer_plan
     from repro_torch.models.moe import moe_capacity, route_tokens
+    from repro_torch.models.moe_check import (DRAWS, LOGIT_NOISE_FACTOR,
+                                              LOGIT_TOL_MIN, check_moe_prefill)
     from repro_torch.models.offload_program import make_lm_program
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving.engine import ServeEngine
@@ -1004,6 +1028,46 @@ def main() -> int:
           f"{bound_ms / ms:.1%} of it) [{card}]")
     print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
     del q, k, v, got, want, lib
+    torch.cuda.empty_cache()
+
+    # row 3p: paligemma-3b's causal attention (phase 16), 8 query heads over
+    # 1 kv head of width 256 over its 256-patch prefix and a bucket: S =
+    # 272, 768 and 2,080, ragged tail tiles.  Timed as graph replays beside
+    # SDPA with enable_gqa and the same causal mask
+    flash_pali = {}
+    for n in PALI_SEQS:
+        b, hq, hkv, d = 1, 8, 1, 256
+        q = randn(b, hq, n, d, dtype=bf16)
+        k, v = randn(b, hkv, n, d, dtype=bf16), randn(b, hkv, n, d, dtype=bf16)
+        got = FA.flash_attention(q, k, v, causal=True)
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        torch.cuda.synchronize()
+        assert_close(torch, got.float(), want.float(),
+                     f"flash_attention 3p S={n}", rtol=2e-2, atol=2e-2)
+        assert_close(torch, lib.float(), want.float(),
+                     f"SDPA vs plain (3p S={n})", rtol=2e-2, atol=2e-2)
+        bq, bk = FA.default_tiles(bf16, d)
+        ms, ms_range = graph_ms(torch, flash_direct(q, k, v, 0, bq, bk), 10)
+        plain_ms, plain_range = cuda_ms(
+            torch, lambda: FA.flash_attention_plain(q, k, v, causal=True), 3)
+        lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        bound_ms, bound_by = flash_bound_ms(b, hq, hkv, n, d, 2, True, 0,
+                                            BF16_FLOPS_PER_S)
+        flash_pali[n] = {"max_abs_err": max_abs_err(torch, got.float(),
+                                                    want.float()),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms}
+        print(f"flash_attention 3p paligemma [B={b}, Hq={hq}, Hkv={hkv}, "
+              f"S={n}, D={d}] bf16 causal, tiles {bq}x{bk}: max_abs_err="
+              f"{flash_pali[n]['max_abs_err']:.3e} (tol rtol=atol=2e-2); "
+              f"kernel {ms:.4f} ms {ms_range}  plain {plain_ms:.4f} ms "
+              f"{plain_range}  SDPA {lib_ms:.4f} ms {lib_range}  kernel/SDPA "
+              f"{ms / lib_ms:.2f}x  bound {bound_ms * 1e3:.2f} us ({bound_by},"
+              f" {bound_ms / ms:.1%} of it) [{card}]")
+        del q, k, v, got, want, lib
+    print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: {clocks()}")
     torch.cuda.empty_cache()
 
     # the bf16 instances run on the tensor cores (HGMMA) fed by TMA (UTMALDG)
@@ -1484,20 +1548,19 @@ def main() -> int:
 
     def serve_arch(arch: str, hopper: tuple[str, ...],
                    mix: tuple[int, ...] = tuple(range(len(SERVE_PROMPTS))),
-                   ncfg=None, floor_variants: dict | None = None,
-                   lengths: tuple[int, ...] | None = None,
+                   ncfg=None, lengths: tuple[int, ...] | None = None,
                    buckets: tuple[int, ...] | None = None,
                    ctx: int = SERVE_CTX, on_plan=None,
-                   with_model=None) -> dict:
+                   with_model=None, check_prefill=None) -> dict:
         """Plan ``make_lm_program(arch)`` (then a cache hit), draw the model
         (``ncfg``, by default the arch's full config) on the card, serve the
         request mix twice with the ``hopper`` regions over the planned
         pattern (captures, then replays) and once on an eager twin, time the
         decode step both ways against its weight-streaming bound, and hold
         each request's prefill logits under hopper against ref, the noise
-        floor being offload against ref and, where given, each of
-        ``floor_variants`` (name -> fn, registered for the hopper regions
-        for this comparison only).  The mix is ``SERVE_PROMPTS[mix]`` in
+        floor being offload against ref, or, where given, run
+        ``check_prefill(params, ncfg, impl)`` in place of that comparison.
+        The mix is ``SERVE_PROMPTS[mix]`` in
         ``SERVE_BUCKETS[mix]`` at ``SERVE_CTX``, or ``lengths`` in
         ``buckets`` at ``ctx``; a frontend arch's requests each carry their
         own synthetic patches or frames.  ``on_plan(report)`` checks the
@@ -1724,45 +1787,33 @@ def main() -> int:
 
         worst = floor = 0.0
         agree = 0
-        extra = dict(floor_variants or {})
-        for name, fn in extra.items():
-            for r in hopper:
-                register_variant(r, name)(fn)
-        try:
-            for request in requests if hopper else ():
-                prompt = request[0]
-                hop = prefill_logits("hopper", request)
-                ref = prefill_logits("ref", request)
-                off = prefill_logits("offload", request)
-                if not bool(torch.isfinite(hop).all()):
-                    raise AssertionError(f"serve {arch}: non-finite prefill "
-                                         "logits")
-                diff = float((hop - ref).abs().max())
-                worst = max(worst, diff)
-                floors = {
-                    v: float((prefill_logits(v, request) - ref).abs().max())
-                    for v in extra}
-                floors["offload"] = float((off - ref).abs().max())
-                floor = max(floor, *floors.values())
-                agree += int(hop.argmax() == ref.argmax())
-                print(f"  prompt {prompt.size:4d}: max |logits(hopper) - "
-                      f"logits(ref)| = {diff:.3e}, max |logits(hopper) - "
-                      f"logits(offload)| = "
-                      f"{float((hop - off).abs().max()):.3e}"
-                      + "".join(f", max |logits({v}) - logits(ref)| = {f:.3e}"
-                                for v, f in floors.items())
-                      + f", max |logits(ref)| = {float(ref.abs().max()):.3f}")
-        finally:
-            for name in extra:
-                for r in hopper:
-                    unregister_variant(r, name)
+        for request in requests if hopper and not check_prefill else ():
+            prompt = request[0]
+            hop = prefill_logits("hopper", request)
+            ref = prefill_logits("ref", request)
+            off = prefill_logits("offload", request)
+            if not bool(torch.isfinite(hop).all()):
+                raise AssertionError(f"serve {arch}: non-finite prefill "
+                                     "logits")
+            diff = float((hop - ref).abs().max())
+            worst = max(worst, diff)
+            floor = max(floor, float((off - ref).abs().max()))
+            agree += int(hop.argmax() == ref.argmax())
+            print(f"  prompt {prompt.size:4d}: max |logits(hopper) - "
+                  f"logits(ref)| = {diff:.3e}, max |logits(hopper) - "
+                  f"logits(offload)| = {float((hop - off).abs().max()):.3e}, "
+                  f"max |logits(offload) - logits(ref)| = "
+                  f"{float((off - ref).abs().max()):.3e}, max |logits(ref)| "
+                  f"= {float(ref.abs().max()):.3f}")
         tol = max(LOGIT_NOISE_FACTOR * floor, LOGIT_TOL_MIN)
-        if hopper:
+        if check_prefill is not None:
+            check_prefill(params, ncfg, impl)
+        elif hopper:
             print(f"prefill logits hopper vs ref: max abs diff {worst:.3e}; "
-                  f"noise floor ({' and '.join(['offload', *extra])} vs ref)"
-                  f" {floor:.3e}; tol max({LOGIT_NOISE_FACTOR} x floor, "
-                  f"{LOGIT_TOL_MIN}) = {tol:.3e}; argmax agrees on "
-                  f"{agree}/{len(prompts)} prompts")
+                  f"noise floor (offload vs ref) {floor:.3e}; tol max("
+                  f"{LOGIT_NOISE_FACTOR} x floor, {LOGIT_TOL_MIN}) = "
+                  f"{tol:.3e}; argmax agrees on {agree}/{len(prompts)} "
+                  "prompts")
         else:
             print("no hopper region served: prefill logits not compared")
         if worst > tol:
@@ -2408,16 +2459,39 @@ def main() -> int:
           f"the card's {card_gib:.1f} GiB; cut to {MOE_LAYERS} layers: "
           f"{moe_cfg.param_count() / 1e9:.3f} B, "
           f"{2 * moe_cfg.param_count() / 2**30:.1f} GiB")
-    # the floor of the prefill-logits check: besides offload (which takes
-    # ref's single tile up to 512 tokens), attention in 2 x 2 chunks at
-    # every bucket.  Expert choice turns a one-ulp change of a token's
-    # hidden state into another pick at an expert's capacity boundary, so
-    # each plain pair that rounds differently is a sample of that noise
-    moe_launches = serve_arch(
-        MOE_ARCH, ("attn_core",), SHORT_MIX, ncfg=moe_cfg,
-        floor_variants={"halves": lambda q, k, v, **kw: L.chunked_attention(
-            q, k, v, q_chunk=max(q.shape[2] // 2, 1),
-            k_chunk=max(k.shape[2] // 2, 1), **kw)})
+    # the prefill is held by the rule of models/moe_check.py on the six
+    # draws of its seed rule, the floor being offload (which takes ref's
+    # single tile up to 512 tokens) and attention in 2 x 2 chunks at every
+    # bucket
+    def moe_prefill_check(params, ncfg, impl):
+        attn = variants("attn_core")
+        floors = {"offload": attn["offload"],
+                  "halves": lambda q, k, v, **kw: L.chunked_attention(
+                      q, k, v, q_chunk=max(q.shape[2] // 2, 1),
+                      k_chunk=max(k.shape[2] // 2, 1), **kw)}
+        results = []
+        for length, seed in DRAWS:
+            prompt, _ = F.synthetic_request(ncfg, length, seed=seed)
+            res = check_moe_prefill(params, ncfg, prompt, ctx=SERVE_CTX,
+                                    attn=attn["hopper"], floors=floors,
+                                    impl=impl)
+            print(f"  draw (seed {seed}, {length} tokens): {res.line()}")
+            results.append(res)
+        print(f"MoE prefill rule over {len(DRAWS)} draws (seeds "
+              f"{[s for _, s in DRAWS]}): kernel on ref's inputs max err "
+              f"{max(r.kernel_err for r in results):.3e}; logits on ref's "
+              f"picks {[f'{r.pinned_diff:.3e}' for r in results]} vs tols "
+              f"{[f'{r.pinned_tol:.3e}' for r in results]}; flips "
+              f"{[sum(r.flips) for r in results]}, L "
+              f"{[r.first_flip for r in results]}; free logits "
+              f"{[f'{r.free_diff:.3e}' for r in results]} [{card}]")
+        bad = [seed for (_, seed), r in zip(DRAWS, results) if not r.ok]
+        if bad:
+            raise AssertionError(f"serve {MOE_ARCH}: the MoE prefill rule "
+                                 f"failed on the draws of seeds {bad}")
+
+    moe_launches = serve_arch(MOE_ARCH, ("attn_core",), SHORT_MIX,
+                              ncfg=moe_cfg, check_prefill=moe_prefill_check)
     if moe_launches["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched serving "
                              f"{MOE_ARCH}")
@@ -2646,6 +2720,98 @@ def main() -> int:
           f"1,500, 64]): {json.dumps(flash_whisper)}; launches: phase 15's "
           f"encode {enc_launches['flash_attention']}, phase 16's serving "
           f"{pali_launches['flash_attention']} [{card}]")
+
+    print(f"flash_attention 3p (paligemma, causal GQA 8:1 at head_dim 256, "
+          f"S = 272 / 768 / 2,080): {json.dumps(flash_pali)}; launches: "
+          f"phase 16's serving {pali_launches['flash_attention']} [{card}]")
+
+    # ---- 17. the launchers and the benchmark harness (slice 11) --------
+    phase("17. launchers")
+    t17 = time.perf_counter()
+    from repro_torch.launch import (offload_fir, offload_mriq,
+                                    offload_transformer, quickstart, serve_lm,
+                                    trend)
+    from repro_torch.launch import run as bench_run
+    for counter in counters:
+        counter.launches = 0
+    cache_env = os.environ.get("REPRO_TORCH_PLAN_CACHE")
+    steps17 = {}
+
+    def step17(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        steps17[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp17:
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = str(Path(tmp17) / "plans.json")
+        try:
+            for again in (False, True):
+                rep17 = step17(
+                    f"quickstart{' (cache)' if again else ''}",
+                    lambda: quickstart.main(["--size", str(QUICKSTART_SIZE),
+                                             "--reps", "1"]))
+                if rep17.from_cache != again:
+                    raise AssertionError(f"quickstart: from_cache "
+                                         f"{rep17.from_cache}, want {again}")
+            for name, mod in (("offload_fir", offload_fir),
+                              ("offload_mriq", offload_mriq)):
+                res = step17(name, lambda mod=mod: mod.main(
+                    ["--reps", str(LAUNCHER_REPS)]))
+                if res["max_abs_err"] is None or not res["report"].baseline.ok:
+                    raise AssertionError(f"{name}: the hopper kernel was not "
+                                         "validated or the plan is unsound")
+            step17("offload_transformer", lambda: offload_transformer.main(
+                ["--reps", "1", "--no-cache"]))
+            served = step17("serve_lm", lambda: serve_lm.main(
+                ["--arch", HYBRID_ARCH, "--requests", "4", "--prompt-len",
+                 "32", "--new-tokens", "16", "--temperature", "0.7",
+                 "--top-k", "20"]))
+            if (served["stats"]["requests_finished"] != 4
+                    or served["stats"]["rollbacks"]):
+                raise AssertionError(f"serve_lm: {served['stats']}")
+            del served
+            gc.collect()
+            torch.cuda.empty_cache()
+            bench = Path(tmp17) / "bench"
+            sections = ("conditions", "kernels")
+            for section in sections:
+                out17 = step17(section, lambda section=section: bench_run.main(
+                    ["--section", section, "--json", "--out", str(bench),
+                     "--reps", str(LAUNCHER_REPS)]))
+            hop = [r for r in out17["kernels"] if r["name"].endswith("/hopper")]
+            print(f"kernel_bench hopper rows: "
+                  f"{[(r['name'], r['launches']) for r in hop]}")
+            silent = [r["name"] for r in hop
+                      if not (r["ran"] and r["launches"] > 0)]
+            if len(hop) != 3 or silent:
+                raise AssertionError(f"kernel_bench: hopper rows {silent} "
+                                     f"launched no kernel ({len(hop)} rows)")
+            docs = {json.loads(f.read_text())["section"]: f.name
+                    for f in sorted(bench.glob("BENCH_*.json"))}
+            print(f"BENCH documents written and read back: {docs}")
+            if set(docs) != set(sections):
+                raise AssertionError(f"BENCH documents {sorted(docs)}, want "
+                                     f"{sorted(sections)}")
+            rc_first = trend.main(["--baseline", str(Path(tmp17) / "none"),
+                                   "--current", str(bench)])
+            rc_self = trend.main(["--baseline", str(bench), "--current",
+                                  str(bench)])
+            print(f"trend: no baseline -> exit {rc_first}; against itself -> "
+                  f"exit {rc_self}")
+            if rc_first != 0 or rc_self != 0:
+                raise AssertionError("trend: a first run or a run against "
+                                     "itself must exit 0")
+        finally:
+            if cache_env is None:
+                os.environ.pop("REPRO_TORCH_PLAN_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_PLAN_CACHE"] = cache_env
+    launcher_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 17: {launcher_launches}; seconds per step "
+          f"{steps17}; phase wall {time.perf_counter() - t17:.1f} s [{card}]")
+    for name, count in launcher_launches.items():
+        rows[name]["launches"] += count
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")

@@ -69,14 +69,14 @@ from dataclasses import dataclass, field
 from repro_torch.core.intensity import TRANSCENDENTAL_WEIGHT
 from repro_torch.core.regions import (Impl, canonical_gene, gene_variant,
                                       tuning_space)
+from repro_torch.launch.constants import HBM_BW, PEAK_FLOPS_BF16, SFU_RATE
 
 # Accelerator-side seeds: published NVIDIA H100 SXM figures at its full
 # 700 W limit (the roofline terms chip_smoke.py's bounds use).  Only the
 # host-vs-accelerator ratio matters before calibration replaces the scale.
-ACCEL_FLOPS = 989e12            # dense bf16 tensor-core flop/s
-ACCEL_BW = 3.35e12              # HBM3 bytes/s
-ACCEL_TRANSCENDENTAL_RATE = 4.19e12  # SFU sin/cos/exp per second (1/16 of
-                                     # the 67e12 FP32 flop/s)
+ACCEL_FLOPS = PEAK_FLOPS_BF16   # dense bf16 tensor-core flop/s
+ACCEL_BW = HBM_BW               # HBM3 bytes/s
+ACCEL_TRANSCENDENTAL_RATE = SFU_RATE  # SFU sin/cos/exp per second
 
 # Host-side seeds (sequential loop-faithful ref code).  Only the
 # host-vs-accelerator *ratio* matters before calibration kicks in.

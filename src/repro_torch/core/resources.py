@@ -34,9 +34,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.core.intensity import count_ops
-from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.launch.constants import L2_BYTES, SMEM_PER_BLOCK
 
-L2_BYTES = 50 * 1024 * 1024         # H100 L2 cache
 
 # (region, variant) -> fn(*meta args, **tile params) -> shared-memory bytes
 # per block, mirroring the kernel's launch configuration.

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels (``csrc/``), their wrappers and oracles."""
 
-# shared memory one Hopper block may use: 227 KB of the SM's 256 KB, above
-# 48 KB only as dynamic shared memory (H100/H200 data sheets)
-SMEM_PER_BLOCK = 232_448
+# shared memory one Hopper block may use, from the port's one module of
+# the card's figures
+from repro_torch.launch.constants import SMEM_PER_BLOCK  # noqa: F401 (re-export)
 
 
 def launch_counters() -> tuple:

@@ -25,24 +25,37 @@ Three sections:
    against its split halves: the fused region is measured first-class and
    its presence re-keys the plan cache.
 
-The plans run on the reduced models, as the JAX benchmark's do.  Entry
-points default to ``cuda``:
+The plans run on the reduced models, as the JAX benchmark's do.
+
+``--conditions`` runs the paper's §5.1.2 evaluation-conditions table
+instead (the twin of ``benchmarks/loop_extraction.py``'s default
+section): tdFIR and MRI-Q through Steps 1-4 with the paper's budgets, one
+row each: loop statements in the C source (tdFIR 36, MRI-Q 16), loops the
+Step-1 census traced, regions, the widths after the arithmetic-intensity
+filter (a <= 5) and the resource-efficiency filter (c <= 3), and the
+patterns measured (d <= 4).  ``--json PATH`` writes the rows as a
+``{"section": "conditions", ...}`` document, or, without
+``--conditions``, the accuracy and autoplan rows as a ``{"section":
+"extraction", ...}`` one.  Entry points default to ``cuda``:
 
     PYTHONPATH=src python -m repro_torch.launch.loop_extraction [--explain]
     PYTHONPATH=src python -m repro_torch.launch.loop_extraction \\
         --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.loop_extraction \\
+        --conditions [--device cpu --reduced] [--json PATH]
 """
 from __future__ import annotations
 
 import argparse
+import json
 import tempfile
 import time
 
 import torch
 
-from repro_torch.apps import tdfir
+from repro_torch.apps import mriq, tdfir
 from repro_torch.configs.base import get_config
-from repro_torch.configs.paper_apps import TDFIR_FULL, TdFirConfig
+from repro_torch.configs.paper_apps import TDFIR_FULL, MriQConfig, TdFirConfig
 from repro_torch.core.device import backend_name, resolve_device
 from repro_torch.core.extract import FAMILIES, discover, extract
 from repro_torch.core.plan_cache import PlanCache, plan_cache_key
@@ -252,19 +265,80 @@ def run_stitch_demo(device, *, reps: int = 1, seq: int = SEQ) -> dict:
     }
 
 
+MRIQ_SMALL = MriQConfig(num_x=300, num_k=200)
+
+
+def run_conditions(device, *, reps: int = 2,
+                   reduced: bool = False) -> list[dict]:
+    """The paper's §5.1.2 conditions table: one staged plan per app with
+    the paper's budgets, and its stage widths."""
+    apps = (("tdfir", lambda: tdfir.make_program(TDFIR_SMALL, TDFIR_SMALL,
+                                                 device=device)
+             if reduced else tdfir.make_program(device=device)),
+            ("mriq", lambda: mriq.make_program(MRIQ_SMALL, MRIQ_SMALL,
+                                               device=device)
+             if reduced else mriq.make_program(device=device)))
+    rows = []
+    for name, make in apps:
+        rep = AutoOffloader(PlannerConfig(reps=reps)).plan(make())
+        rows.append({
+            "app": name,
+            "source_loops": rep.source_loop_count,
+            "traced_loops": rep.loop_count,
+            "regions": len(rep.candidates),
+            "after_ai": len(rep.ai_selected),
+            "after_eff": len(rep.eff_selected),
+            "measured": len(rep.measurements),
+            "strategy": rep.strategy,
+            "speedup": rep.speedup,
+        })
+    return rows
+
+
+def main_conditions(device, *, reps: int = 2, reduced: bool = False,
+                    json_path: str | None = None) -> list[dict]:
+    """Print the conditions table (with the paper's bounds asserted) and
+    write it to ``json_path`` when given."""
+    rows = run_conditions(device, reps=reps, reduced=reduced)
+    print("app,source_loops,traced_loops,regions,after_ai(a<=5),"
+          "after_eff(c<=3),measured(d<=4)")
+    for r in rows:
+        print(f"{r['app']},{r['source_loops']},{r['traced_loops']},"
+              f"{r['regions']},{r['after_ai']},{r['after_eff']},"
+              f"{r['measured']}")
+        if r["after_ai"] > 5 or r["after_eff"] > 3 or r["measured"] > 4:
+            raise AssertionError(f"{r['app']}: stage widths {r} exceed the "
+                                 "paper's budgets a=5, c=3, d=4")
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump({"section": "conditions",
+                       "backend": backend_name(device), "rows": rows}, f,
+                      indent=2, sort_keys=True)
+        print(f"# wrote {json_path}")
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; raises without a card)")
     ap.add_argument("--reduced", action="store_true",
                     help="score the reduced archs and tdFIR's small set "
-                         "(default: full width and depth, on fake tensors)")
+                         "(default: full width and depth, on fake tensors); "
+                         "with --conditions: plan the apps at small sizes")
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--explain", action="store_true",
                     help="print each program's full extraction summary "
                          "incl. rejection diagnostics")
+    ap.add_argument("--conditions", action="store_true",
+                    help="run the paper's conditions table instead")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="also write the section's rows here")
     a = ap.parse_args(argv)
     dev = resolve_device(a.device)
+    if a.conditions:
+        return {"conditions": main_conditions(
+            dev, reps=max(a.reps, 2), reduced=a.reduced, json_path=a.json)}
     acc = run_accuracy(dev, reduced=a.reduced, explain=a.explain)
     print_accuracy(*acc)
 
@@ -290,6 +364,15 @@ def main(argv=None) -> dict:
     print(f"stitch: fused={stitch_row['fused_regions']} "
           f"measured={stitch_row['measured_genes']} "
           f"best={stitch_row['best_pattern']}")
+    if a.json:
+        rows, precision, recall, per_family = acc
+        with open(a.json, "w") as f:
+            json.dump({"section": "extraction", "backend": backend_name(dev),
+                       "precision": precision, "recall": recall,
+                       "per_family": per_family, "stitch": stitch_row,
+                       "rows": rows + plan_rows}, f, indent=2,
+                      sort_keys=True)
+        print(f"# wrote {a.json}")
     return {"accuracy": acc, "autoplan": plan_rows, "stitch": stitch_row}
 
 

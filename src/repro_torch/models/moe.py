@@ -25,14 +25,22 @@ Precision and order follow the JAX code:
 
 Nothing here reads a value back to the host: capacities and group counts
 are Python ints from static shapes, so a prefill or decode step with MoE
-layers captures into a CUDA graph.  The JAX code's sharding constraints
+layers captures into a CUDA graph.
+
+:class:`ExpertChoiceLog` records each expert-choice layer's router logits
+and picks, and can replay the picks of one run in another (the MoE
+prefill check of ``models/moe_check.py``).  It acts only inside ``with
+log.active():`` on the thread that entered it; elsewhere the routing runs
+exactly as without it and adds no operation to a captured graph.  The JAX code's sharding constraints
 (``repro.parallel.ctx.constrain``) are the identity on one device; they
 come back with the multi-device slice.  ``aux_load_balance_loss`` is
 training and comes with the training slice.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +98,44 @@ def route_tokens(x, w_router, num_experts: int, k: int, capacity: int):
     pos_in_expert = (pos * flat).sum(-1).reshape(t, k)        # [T, k]
     keep = pos_in_expert < capacity
     return gate_vals, gate_idx, onehot, pos_in_expert, keep
+
+
+_ACTIVE = threading.local()      # .log: the ExpertChoiceLog in use, if any
+
+
+class ExpertChoiceLog:
+    """The expert-choice layers of one run, in the order they route:
+    ``logits`` (the router's float32 scores [G, T/G, E]) and ``picks`` (the
+    tokens each expert took, ``idx`` [G, E, C]).
+
+    Given ``replay`` (the ``picks`` of another run on the same shapes),
+    layer i combines the tokens ``replay[i]`` instead of its own top-C, at
+    the gates of its own router probabilities at those tokens; ``picks``
+    then records what it combined.  The log is recorded only inside
+    :meth:`active`."""
+
+    def __init__(self, replay: list | None = None):
+        self.replay = replay
+        self.logits: list = []
+        self.picks: list = []
+
+    @contextlib.contextmanager
+    def active(self):
+        prev = getattr(_ACTIVE, "log", None)
+        _ACTIVE.log = self
+        try:
+            yield self
+        finally:
+            _ACTIVE.log = prev
+
+    def route(self, logits, probs, gate, idx):
+        """(gate, idx) for the layer that routed ``logits``."""
+        if self.replay is not None:
+            idx = self.replay[len(self.picks)]
+            gate = probs.transpose(1, 2).gather(-1, idx)
+        self.logits.append(logits)
+        self.picks.append(idx)
+        return gate, idx
 
 
 @register_variant("moe_dispatch", "ref")
@@ -172,9 +218,13 @@ def moe_expert_choice(x, params, *, num_experts: int, k: int,
     tg = t // g
     e = num_experts
     xg = x.reshape(g, tg, d)
-    probs = torch.softmax(_router_logits(xg, params["router"]), dim=-1)
+    logits = _router_logits(xg, params["router"])
+    probs = torch.softmax(logits, dim=-1)
     c = min(moe_capacity(tg, e, k, capacity_factor), tg)
     gate, idx = top_k(probs.transpose(1, 2), c)               # [G, E, C]
+    log = getattr(_ACTIVE, "log", None)
+    if log is not None:
+        gate, idx = log.route(logits, probs, gate, idx)
     flat_idx = idx.reshape(g, e * c)
     xe = torch.gather(xg, 1, flat_idx[..., None].expand(g, e * c, d))
     # the experts' products batched over E, G x C rows each

@@ -59,3 +59,66 @@ def test_each_hole_is_reported(tmp_path, hole, which, old, new, want):
     path.write_text(text.replace(old, new))
     found = mod.check_recognizer_coverage(root)
     assert any(want in v for v in found), (hole, found)
+
+
+# rules 1-4 on a tree of one file each: (check, path, source, the
+# violation it must report or None for a clean tree)
+_VARIANT = ('from repro_torch.core.regions import register_variant\n'
+            '@register_variant("attn_core", "x"{extra})\n'
+            'def f(q, *, block_k=64):\n'
+            '    return q\n')
+RULES = [
+    ("time.time", "check_time_time", "src/repro_torch/core/t.py",
+     "import time\nt0 = time.time()\n", "time.time forbidden here"),
+    ("time.time waived", "check_time_time", "src/repro_torch/serving/t.py",
+     "import time\nt0 = time.time()  # wallclock: a log stamp\n", None),
+    ("perf_counter", "check_time_time", "src/repro_torch/launch/t.py",
+     "import time\nt0 = time.perf_counter()\n", None),
+    ("sys.path in launch", "check_sys_path", "src/repro_torch/launch/s.py",
+     "import sys\nsys.path.insert(0, 'src')\n", "sys.path.insert forbidden"),
+    ("sys.path append", "check_sys_path", "src/repro_torch/launch/s.py",
+     "import sys\nsys.path.append('src')\n", "sys.path.append forbidden"),
+    ("chip_smoke unwaived", "check_sys_path", "chip_smoke.py",
+     "import sys\nsys.path.insert(0, 'src')\n", "chip_smoke.py:2"),
+    ("chip_smoke waived", "check_sys_path", "chip_smoke.py",
+     "import sys\nsys.path.insert(0, 'src')  # sys-path: run alone\n", None),
+    ("knob without space", "check_tuning_spaces", "src/repro_torch/k.py",
+     _VARIANT.format(extra=""), "exposes tuning knob(s) block_k"),
+    ("knob with space", "check_tuning_spaces", "src/repro_torch/k.py",
+     _VARIANT.format(extra=", tuning=SPACE"), None),
+    ("knob waived", "check_tuning_spaces", "src/repro_torch/k.py",
+     _VARIANT.format(extra="").replace(
+         '"x")', '"x")  # no-tuning: fixed by the caller'), None),
+    ("silent broad except", "check_silent_excepts",
+     "src/repro_torch/core/e.py",
+     "try:\n    x = 1\nexcept Exception:\n    pass\n", "broad silent except"),
+    ("bare except", "check_silent_excepts", "src/repro_torch/serving/e.py",
+     "try:\n    x = 1\nexcept:\n    pass\n", "broad silent except"),
+    ("typed except", "check_silent_excepts", "src/repro_torch/core/e.py",
+     "try:\n    x = 1\nexcept (KeyError, ValueError):\n    pass\n", None),
+    ("broad except that returns", "check_silent_excepts",
+     "src/repro_torch/core/e.py",
+     "def f():\n    try:\n        return 1\n    except Exception:\n"
+     "        return False\n", None),
+]
+
+
+@pytest.mark.parametrize("case,check,rel,src,want", RULES,
+                         ids=[r[0] for r in RULES])
+def test_each_rule_reports_its_pattern_and_only_it(tmp_path, case, check,
+                                                   rel, src, want):
+    path = tmp_path / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src)
+    found = getattr(_tool(), check)(tmp_path)
+    if want is None:
+        assert found == [], (case, found)
+    else:
+        assert len(found) == 1 and want in found[0], (case, found)
+
+
+@pytest.mark.parametrize("check", ["check_time_time", "check_sys_path",
+                                   "check_tuning_spaces",
+                                   "check_silent_excepts"])
+def test_the_port_is_clean_under_each_rule(check):
+    assert getattr(_tool(), check)() == []

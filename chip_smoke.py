@@ -195,6 +195,39 @@ Phases, each printed as it runs; any failure exits non-zero:
    row of ``kernel_bench`` must have launched its kernel; the documents
    are read back, and ``trend`` runs over them with no baseline and
    against themselves (both exit 0).  Its launches join the kernels line.
+18. train — the slice-12 main path, one-card training: full-width
+   recurrentgemma-2b (26 layers, d_model 2,560, vocab 256,000; bf16
+   params and grads, float32 moments, 32 GB) drawn from a seeded
+   generator on the card, under ``default_impl`` and the train preset
+   of ``parallelism_for`` (remat "dots", microbatch 1), takes 8 steps of
+   batch 2 x 2,048 from ``SyntheticLM`` at a constant lr of 3e-4 (at
+   tests/test_system.py's 1e-2 the full-width loss diverges after step
+   3): the loss must be finite at every step and fall;
+   then one more step from one state (kept on the host and copied back)
+   under "dots" and under "full": the losses must be equal bit for bit,
+   the grad norms within 1e-3 relative; each prints its peak memory.
+   Then whisper-small at full width and depth (with its frames) takes 10
+   steps of ``run_training`` with a checkpoint every 5 into a temporary
+   directory, and a second ``run_training`` to 15 must restore step 10
+   and run only the last 5; then ``train_lm``'s ~100M model runs 60
+   steps and its loss must fall.  No kernel may launch (the train step
+   takes the ref/offload variants; a hopper entry point refuses inputs
+   that require grad).
+19. int8 decode — the slice-12 serving path, int8 weight-only decode:
+   Mixtral-8x7B at full width with 8 of its 32 layers (23.7 GB bf16 +
+   11.9 GB int8 + the dequantized tree), 4 greedy decode steps from one
+   bf16 prefill of 4 x 2,048 tokens through ``make_serve_step``,
+   ``make_quantized_serve_step`` and ``make_serve_step`` on the
+   dequantized tree, each fed the bf16 step's tokens: the int8 step must
+   equal the dequantized one bit for bit and lie within cosine 0.99 of
+   bf16 per slot (tests/test_quantize.py's cosine); the argmax agreement,
+   bf16's top-two margins and the int8 logit error are printed (on random
+   weights the top two lie within the int8 error); then all 32 layers in
+   int8 alone (46.7 GB, drawn and quantized one layer slice at a time),
+   4 slots at ctx 2,080, a prefill and 16 greedy decode steps: the
+   step's host-clock time, its device time (``torch.profiler``) and its
+   int8 weight-streaming bound (every int8 byte with the scales, and the
+   cache, once, at 3.35 TB/s), and the peak memory.
 
 Phases 6, 8, 9, 14, 15 and 16 print the decode step's device time beside
 its weight-streaming bound: every weight the step reads and the whole
@@ -323,6 +356,36 @@ FIR_FIRST_MS = 0.0148
 # the timing reps of the launchers' plans
 QUICKSTART_SIZE = 64
 LAUNCHER_REPS = 3
+# phase 18: full-width recurrentgemma-2b trained on the card at batch 2 x
+# 2,048 tokens under the train preset (dots remat, microbatch 1), then one
+# step from the same state under each of "dots" and "full"; whisper-small's
+# restart from a checkpoint (batch 4 x 448 text tokens, each with its 3,000
+# mel frames); train_lm's ~100M model.  The lr is constant at 3e-4, the
+# peak of the JAX train step's default schedule: at the 1e-2 that the
+# reduced models of tests/test_system.py take, AdamW moves each weight of
+# the full-width model by about half its init scale (std 1/sqrt(2,560)) a
+# step, and its loss fell from 12.45 to 6.46 in 3 steps and rose to 18.9
+# by step 8 (PERF.md, PR 23)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
+GRAD_NORM_RTOL = 1e-3          # "full" against "dots", the same state
+WHISPER_TRAIN = (4, 448)
+WHISPER_STEPS, WHISPER_RESTART = 10, 15
+TRAIN_LM_STEPS = 60
+# phase 19: Mixtral-8x7B in int8: 8 of its 32 layers beside their bf16
+# tree and its dequantized copy (~23 + 12 + 23 GB), greedy decode steps
+# from one bf16 prefill through the bf16 step, the int8 step and the bf16
+# step on the dequantized tree, all fed the bf16 step's tokens: the int8
+# step must equal the dequantized one bit for bit and come within cosine
+# 0.99 of bf16 per slot (tests/test_quantize.py's cosine).  Its argmax
+# check is printed, not held: on random full-width weights the decode
+# logits' top two lie within the int8 error (the first card run flipped
+# one slot of four at cosine 0.9973; PERF.md, PR 23).  Then all 32 layers
+# in int8 alone (~47 GB), 4 slots at ctx 2,080, 16 greedy decode steps
+QUANT_LAYERS = 8
+QUANT_PROMPT = 2048
+QUANT_CHECK_STEPS = 4
+QUANT_DECODE_STEPS = 16
+QUANT_MIN_COSINE = 0.99
 
 
 _START = time.perf_counter()
@@ -2812,6 +2875,251 @@ def main() -> int:
           f"{steps17}; phase wall {time.perf_counter() - t17:.1f} s [{card}]")
     for name, count in launcher_launches.items():
         rows[name]["launches"] += count
+
+    # ---- 18. one-card training (slice-12 main path) --------------------
+    phase("18. train")
+    t18 = time.perf_counter()
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch import train_lm
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim.schedule import constant
+    from repro_torch.parallel.presets import parallelism_for
+    from repro_torch.runtime import steps as train_steps
+    from repro_torch.runtime.loop import LoopConfig, run_training
+    for counter in counters:
+        counter.launches = 0
+    gib = 2 ** 30
+    lr_fn = lambda step: constant(step, peak_lr=TRAIN_LR)
+    rg = get_config(HYBRID_ARCH)
+    pcfg = parallelism_for(rg, SHAPES["train_4k"], model_axis=1)
+    if (pcfg.remat, pcfg.microbatch) != ("dots", 1):
+        raise AssertionError(f"train preset of {HYBRID_ARCH}: {pcfg}")
+    t0 = time.perf_counter()
+    state = train_steps.init_train_state(
+        rg, torch.Generator(device=dev).manual_seed(18))
+    torch.cuda.synchronize()
+    print(f"{HYBRID_ARCH} at full width and depth ({rg.num_layers} layers, "
+          f"d_model {rg.d_model}, vocab {rg.vocab_size:,}): "
+          f"{rg.param_count() / 1e9:.3f} B parameters; state (bf16 params, "
+          f"float32 moments) drawn in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / gib:.2f} GiB; preset {pcfg}; "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, constant lr {TRAIN_LR}")
+    data = SyntheticLM(rg, TRAIN_BATCH, TRAIN_SEQ, seed=18)
+    steps18 = {mode: train_steps.make_train_step(
+        rg, dataclasses.replace(pcfg, remat=mode), lr_fn=lr_fn)
+        for mode in ("dots", "full")}
+    losses, norms, secs = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TRAIN_STEPS):
+        batch = to_device(next(data), dev)
+        t0 = time.perf_counter()
+        state, metrics = steps18["dots"](state, batch)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        secs.append(time.perf_counter() - t0)
+    print(f"{TRAIN_STEPS} steps under dots: losses "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in norms]}; seconds a step "
+          f"{[round(x, 2) for x in secs]}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB [{card}]")
+    if not all(math.isfinite(x) for x in losses + norms) or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"train {HYBRID_ARCH}: the loss is not finite or "
+                             f"did not fall: {losses}")
+    # one more step from the same state under each mode: the state is
+    # updated in place, so it is kept on the host and copied back between
+    batch = to_device(next(data), dev)
+    t0 = time.perf_counter()
+    saved = tree_map(lambda t: t.to("cpu", copy=True), state)
+    print(f"state copied to the host in {time.perf_counter() - t0:.1f} s")
+    modes18 = {}
+    for mode in ("dots", "full"):
+        for dst, src in zip(tree_leaves(state), tree_leaves(saved)):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, metrics = steps18[mode](state, batch)
+        modes18[mode] = (metrics["loss"].item(), metrics["grad_norm"].item(),
+                         torch.cuda.max_memory_allocated(dev) / gib,
+                         time.perf_counter() - t0)
+    print("step 9 from one state: " + "; ".join(
+        f"{mode}: loss {v[0]!r}, grad norm {v[1]!r}, peak {v[2]:.2f} GiB, "
+        f"{v[3]:.2f} s" for mode, v in modes18.items()) + f" [{card}]")
+    (loss_d, norm_d, *_), (loss_f, norm_f, *_) = modes18.values()
+    if loss_f != loss_d or abs(norm_f - norm_d) > GRAD_NORM_RTOL * norm_d:
+        raise AssertionError(f"train {HYBRID_ARCH}: full remat gives loss "
+                             f"{loss_f!r} / grad norm {norm_f!r} against dots' "
+                             f"{loss_d!r} / {norm_d!r}")
+    del state, saved, batch, steps18, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # whisper-small: 10 steps with a checkpoint every 5, then a second run
+    # to 15 that restores step 10 (and the data position) and runs 5 steps
+    wh = get_config(WHISPER_ARCH)
+    wpcfg = parallelism_for(wh, SHAPES["train_4k"], model_axis=1)
+    with tempfile.TemporaryDirectory() as tmp18:
+        ck = CheckpointManager(tmp18, keep_n=2)
+        runs18 = []
+        for total in (WHISPER_STEPS, WHISPER_RESTART):
+            t0 = time.perf_counter()
+            res = run_training(
+                wh, wpcfg, dev, SyntheticLM(wh, *WHISPER_TRAIN, seed=19),
+                LoopConfig(total_steps=total, checkpoint_every=5, log_every=0),
+                ckpt=ck, seed=19, lr_fn=lr_fn)
+            runs18.append((res, time.perf_counter() - t0))
+            print(f"{WHISPER_ARCH} run to {total}: restored from "
+                  f"{res.restored_from}, {len(res.losses)} steps, losses "
+                  f"{[round(x, 4) for x in res.losses]}, median step "
+                  f"{statistics.median(res.step_times):.3f} s, wall "
+                  f"{runs18[-1][1]:.1f} s, stragglers {res.straggler_events}; "
+                  f"checkpoints {sorted(os.listdir(tmp18))}")
+        first, second = runs18[0][0], runs18[1][0]
+        if (first.final_step != WHISPER_STEPS or first.restored_from is not None
+                or second.restored_from != WHISPER_STEPS
+                or len(second.losses) != WHISPER_RESTART - WHISPER_STEPS
+                or second.final_step != WHISPER_RESTART
+                or not all(map(math.isfinite, first.losses + second.losses))):
+            raise AssertionError(f"train {WHISPER_ARCH}: the restart did not "
+                                 "resume at step 10 for 5 finite steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp18:
+        t0 = time.perf_counter()
+        res = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-dir",
+                             tmp18, "--device", str(dev)])
+        print(f"train_lm: {len(res.losses)} steps in "
+              f"{time.perf_counter() - t0:.1f} s, loss {res.losses[0]:.4f} -> "
+              f"{res.losses[-1]:.4f} [{card}]")
+        if not res.losses[-1] < res.losses[0]:
+            raise AssertionError("train_lm: the loss did not fall")
+    train_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 18: {train_launches} (the train step takes the "
+          f"ref/offload variants); phase wall {time.perf_counter() - t18:.1f} s")
+    if any(train_launches.values()):
+        raise AssertionError("a hopper kernel launched in a train step")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19. int8 weight-only decode (slice-12 main path) --------------
+    phase("19. int8 decode")
+    t19 = time.perf_counter()
+    from repro_torch.optim import quantize as Q
+    for counter in counters:
+        counter.launches = 0
+    q8 = dataclasses.replace(full_moe, num_layers=QUANT_LAYERS)
+    params = F.init_params(q8, torch.Generator(device=dev).manual_seed(19))
+    prompts = {"tokens": torch.from_numpy(F.synthetic_batch(
+        q8, SERVE_SLOTS, QUANT_PROMPT, seed=190)["tokens"]).to(dev)}
+    logits, cache = F.make_prefill_step(q8, ctx=SERVE_CTX)(params, prompts)
+    qparams = Q.quantize_params(params)
+    deq = Q.dequantize_params(qparams)
+    torch.cuda.synchronize()
+    orig_b, quant_b = Q.quantized_bytes(lm.model_template(q8))
+    print(f"{MOE_ARCH} with {QUANT_LAYERS} of {full_moe.num_layers} layers: "
+          f"{orig_b / 1e9:.2f} GB bf16, {quant_b / 1e9:.2f} GB int8 "
+          f"(quantized_bytes); allocated "
+          f"{torch.cuda.memory_allocated(dev) / gib:.2f} GiB with the bf16, "
+          "int8 and dequantized trees")
+    cache_q, cache_d = (tree_map(torch.clone, cache) for _ in range(2))
+    serve, qserve = F.make_serve_step(q8), F.make_quantized_serve_step(q8)
+    # every path takes the bf16 step's greedy token, so each step compares
+    # logits of the same context
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    cosines, agree, margins, errs = [], [], [], []
+    for i in range(QUANT_CHECK_STEPS):
+        pos = torch.full((SERVE_SLOTS,), QUANT_PROMPT + i, dtype=torch.int32,
+                         device=dev)
+        lg, cache = serve(params, cache, tok[:, None], pos)
+        lg_q, cache_q = qserve(qparams, cache_q, tok[:, None], pos)
+        lg_d, cache_d = serve(deq, cache_d, tok[:, None], pos)
+        if not torch.equal(lg_q, lg_d):
+            raise AssertionError(
+                f"int8 {MOE_ARCH} decode step {i}: the at-use dequantized "
+                f"step differs from the step on the dequantized tree by "
+                f"{float((lg_q - lg_d).abs().max()):.3e}")
+        a, b = lg[:, 0].float(), lg_q[:, 0].float()
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+        top2 = a.topk(2, dim=-1).values
+        cosines.append([round(float(c), 6) for c in cos])
+        agree.append((a.argmax(-1) == b.argmax(-1)).tolist())
+        margins.append([round(float(m), 4) for m in top2[:, 0] - top2[:, 1]])
+        errs.append([round(float(e), 4) for e in (a - b).abs().amax(-1)])
+        if float(cos.min()) <= QUANT_MIN_COSINE:
+            raise AssertionError(f"int8 {MOE_ARCH} decode step {i}: cosine "
+                                 f"{cosines[-1]} against bf16")
+        tok = a.argmax(-1).to(torch.int32)
+    print(f"int8 against bf16, {QUANT_CHECK_STEPS} greedy decode steps from "
+          f"one [{SERVE_SLOTS}, {QUANT_PROMPT}] bf16 prefill (the bf16 "
+          f"step's tokens fed to every path): the int8 step equals the bf16 "
+          f"step on the dequantized tree bit for bit at every step; cosine "
+          f"to bf16 per slot {cosines} (> {QUANT_MIN_COSINE}); argmax equal "
+          f"{agree}; bf16 top-1 minus top-2 logit {margins}; max |int8 - "
+          f"bf16| logit {errs} [{card}]")
+    del params, qparams, deq, cache, cache_q, cache_d, logits, lg, lg_q, lg_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # all 32 layers in int8 alone, drawn and quantized one layer slice at
+    # a time (no bf16 stacked leaf is ever whole)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    qfull = Q.init_quantized(lm.model_template(full_moe),
+                             torch.Generator(device=dev).manual_seed(191))
+    torch.cuda.synchronize()
+    q_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(qfull))
+    print(f"{MOE_ARCH} at all {full_moe.num_layers} layers in int8: "
+          f"{q_bytes / 1e9:.2f} GB drawn and quantized in "
+          f"{time.perf_counter() - t0:.1f} s; peak so far "
+          f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB")
+    t0 = time.perf_counter()
+    logits, cache = F.make_prefill_step(full_moe, ctx=SERVE_CTX)(
+        F.dequantize_outside_stack(qfull, full_moe), prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    qserve = F.make_quantized_serve_step(full_moe)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    step_s, streams = [], [tok.tolist()]
+    for i in range(QUANT_DECODE_STEPS):
+        pos = torch.full((SERVE_SLOTS,), QUANT_PROMPT + i, dtype=torch.int32,
+                         device=dev)
+        t0 = time.perf_counter()
+        lg, cache = qserve(qfull, cache, tok[:, None], pos)
+        tok = lg[:, 0].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        streams.append(tok.tolist())
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"int8 {MOE_ARCH}: non-finite logits at "
+                                 f"decode step {i}")
+    step_ms = statistics.median(step_s) * 1e3
+    pos = torch.full((SERVE_SLOTS,), QUANT_PROMPT + QUANT_DECODE_STEPS,
+                     dtype=torch.int32, device=dev)
+    trace, device_ms = profile_step(
+        torch, lambda: qserve(qfull, cache, tok[:, None], pos), step_ms)
+    bound_ms = (q_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"int8 decode, {SERVE_SLOTS} slots at ctx {SERVE_CTX}, "
+          f"{QUANT_DECODE_STEPS} greedy steps after a [{SERVE_SLOTS}, "
+          f"{QUANT_PROMPT}] prefill ({prefill_s:.1f} s): step "
+          f"{step_ms:.3f} ms median on the host clock (synchronized); "
+          f"{trace}; weight-streaming bound {bound_ms:.3f} ms (int8 "
+          f"{q_bytes / 1e9:.2f} GB with scales + cache {cache_bytes / 1e9:.2f} "
+          "GB, once, at 3.35 TB/s)"
+          + (f", device time / bound {device_ms / bound_ms:.2f}x"
+             if device_ms else "")
+          + f"; peak {torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB "
+          f"[{card}]")
+    print(f"greedy tokens per slot: {[list(s) for s in zip(*streams)]}")
+    quant_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 19: {quant_launches}; phase wall "
+          f"{time.perf_counter() - t19:.1f} s")
+    del qfull, cache, logits, lg, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")

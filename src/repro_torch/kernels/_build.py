@@ -29,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fir", "mriq", "flash_attention", "decode_attention", "ssm_scan",
@@ -142,6 +144,22 @@ def check(code: int, lib: ctypes.CDLL, what: str) -> None:
     if code != 0:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(kernel: str, region: str, *tensors) -> None:
+    """Raise when autograd would record through ``kernel``: grad mode is on
+    and an input requires grad.  The kernels have no backward (nor has any
+    Pallas kernel of the JAX package: it defines no ``custom_vjp``) and
+    their outputs carry no autograd history, so every gradient upstream of
+    the region would be silently missing.  Called first in each wrapper,
+    before any check of the device or build."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the {region} region's hopper kernel has no backward, "
+            f"and an input requires grad; the train step takes the region's "
+            f"ref/offload variants (factory.default_impl), or call the kernel "
+            f"under torch.no_grad()")
 
 
 def declare(lib: ctypes.CDLL, signatures: dict) -> None:

@@ -147,6 +147,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: [B, Hq, 1, D]; k/v_cache: [B, Hkv, S, D] (q, k, v all bf16 or all
     float32, contiguous); slot_pos: int32 [B, S] (-1 = empty); cur_pos:
     int32 [B].  Returns [B, Hq, 1, D] in q's type."""
+    _build.refuse_grad("decode_attention", "decode_attn", q, k_cache, v_cache)
     if (q.dim() != 4 or q.shape[2] != 1 or k_cache.dim() != 4
             or k_cache.shape != v_cache.shape):
         raise ValueError(f"decode_attention: want q [B, Hq, 1, D] and k/v "

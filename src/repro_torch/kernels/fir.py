@@ -124,6 +124,7 @@ def fir_filter_bank(x: torch.Tensor, h: torch.Tensor, *,
                     block_n: int = DEFAULT_BLOCK_N,
                     tap_unroll: int = 1) -> torch.Tensor:
     """x: complex64 [M, N]; h: complex64 [M, K].  Returns y [M, N]."""
+    _build.refuse_grad("fir_filter_bank", "fir_bank", x, h)
     if x.dim() != 2 or h.dim() != 2 or x.shape[0] != h.shape[0]:
         raise ValueError(f"fir_filter_bank: want x [M, N] and h [M, K], got "
                          f"{tuple(x.shape)} and {tuple(h.shape)}")

@@ -170,6 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B, Hq, S, D]; k/v: [B, Hkv, S, D], Hq a multiple of Hkv; all
     bf16 or all float32, contiguous.  Returns [B, Hq, S, D] in q's type.
     Without tiles it takes :func:`default_tiles` of q's type and D."""
+    _build.refuse_grad("flash_attention", "attn_core", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q [B, Hq, S, D] and k/v "
                          f"[B, Hkv, S, D], got {tuple(q.shape)}, "

@@ -61,6 +61,8 @@ def kernel_attributes() -> dict:
 def mriq_compute_q(x, y, z, kx, ky, kz, phi_mag):
     """All inputs float32 1-D: voxels x, y, z [numX]; samples kx, ky, kz,
     phiMag [numK].  Returns (Q_re [numX], Q_im [numX])."""
+    _build.refuse_grad("mriq_compute_q", "compute_q", x, y, z, kx, ky, kz,
+                       phi_mag)
     args = (x, y, z, kx, ky, kz, phi_mag)
     for a in args:
         if a.dim() != 1:

@@ -100,6 +100,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     """a, b: [B, S, D], both bf16 or both float32; h0: [B, D] float32; all
     contiguous.  Returns (h_all [B, S, D] in a's type, h_final [B, D]
     float32)."""
+    _build.refuse_grad("rglru_scan", "rglru_scan", a, b, h0)
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru_scan: want a, b [B, S, D], got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")

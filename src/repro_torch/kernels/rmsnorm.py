@@ -68,6 +68,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     """x: [..., D] bf16 or float32 with a contiguous last dim; w: [D]
     contiguous, bf16 or float32 (its own type).  Returns x's shape and
     type."""
+    _build.refuse_grad("rmsnorm", "rmsnorm", x, w)
     if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1]:
         raise ValueError(f"rmsnorm: want x [..., D] and w [D], got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")

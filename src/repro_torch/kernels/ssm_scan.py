@@ -81,6 +81,7 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     """a, bx: [B, S, D, N]; c: [B, S, N], all bf16 or all float32; h0:
     [B, D, N] float32; all contiguous.  Returns (y [B, S, D] in a's type,
     h_final [B, D, N] float32)."""
+    _build.refuse_grad("ssm_scan", "ssm_scan", a, bx, c, h0)
     if a.dim() != 4 or bx.shape != a.shape:
         raise ValueError(f"ssm_scan: want a, bx [B, S, D, N], got "
                          f"{tuple(a.shape)}, {tuple(bx.shape)}")

@@ -28,6 +28,9 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree, device=None):
     """The port's tree of tensors on ``device`` (default ``cuda``) from a
     tree of NumPy arrays (bf16 leaves as NumPy's ``bfloat16``).  A JAX
-    cache tree converts the same way into the port's cache."""
+    cache tree converts the same way into the port's cache, a JAX train
+    state (params, AdamW moments, 0-d ``count`` and ``step``) into the
+    port's train state, and a quantized tree (``{"q", "scale"}`` leaves)
+    into the port's."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf(a, dev), tree)

@@ -1,6 +1,6 @@
 """Model factory: per-arch entry points used by the tests, the planner's
 LM program and the serving engine — the port of the JAX package's
-``models/factory.py`` (no dry-run specs, no quantized serving yet).
+``models/factory.py`` (no dry-run specs).
 
 The frontend archs take a second input beside the tokens, under the JAX
 batch's key: paligemma-3b's ``patches`` (stubbed SigLIP patch embeddings,
@@ -21,6 +21,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.regions import Impl
 from repro_torch.models import lm
 from repro_torch.models import params as P
+from repro_torch.models.params import DTYPES
+from repro_torch.optim.quantize import dequantize_params
 
 
 # ---------------------------------------------------------------------------
@@ -111,13 +113,26 @@ def _merged(cfg: ModelConfig, impl: Optional[Impl]) -> Impl:
     return impl if impl is not None else default_impl(cfg)
 
 
-def make_forward(cfg: ModelConfig, impl: Optional[Impl] = None):
+def make_forward(cfg: ModelConfig, impl: Optional[Impl] = None,
+                 remat: str = "none"):
     impl = _merged(cfg, impl)
 
     def fwd(params, batch):
         return lm.forward(params, batch["tokens"], cfg=cfg, impl=impl,
-                          frontend_emb=_frontend(batch))
+                          frontend_emb=_frontend(batch), remat=remat)
     return fwd
+
+
+def make_loss(cfg: ModelConfig, impl: Optional[Impl] = None,
+              remat: str = "none"):
+    """``loss(params, batch)``: next-token cross-entropy under ``impl``
+    (default :func:`default_impl`, whose regions all have a backward; a
+    ``hopper`` kernel refuses inputs that require grad)."""
+    impl = _merged(cfg, impl)
+
+    def loss(params, batch):
+        return lm.loss_fn(params, batch, cfg=cfg, impl=impl, remat=remat)
+    return loss
 
 
 def make_prefill_step(cfg: ModelConfig, impl: Optional[Impl] = None,
@@ -170,4 +185,29 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[Impl] = None):
 
     def serve_step(params, cache, tokens, pos):
         return lm.decode_step(params, cache, tokens, pos, cfg=cfg, impl=impl)
+    return serve_step
+
+
+def dequantize_outside_stack(qparams, cfg: ModelConfig) -> dict:
+    """A quantized tree with every leaf outside the layer stack dequantized
+    to the model's type; the stacked leaves stay int8, for ``lm`` to
+    dequantize one layer at a time where it uses them."""
+    dt = DTYPES[cfg.dtype]
+    return {k: v if k == "stack" else dequantize_params(v, default_dtype=dt)
+            for k, v in qparams.items()}
+
+
+def make_quantized_serve_step(cfg: ModelConfig, impl: Optional[Impl] = None):
+    """Decode step over int8-quantized weights (``optim/quantize.py``).
+
+    The JAX step dequantizes the whole tree at its top and XLA fuses each
+    convert into the consuming product.  Here the leaves outside the layer
+    stack are dequantized at the top of the step and each stacked leaf
+    where its layer uses it (``lm._layer``), with the same values, so no
+    dequantized stacked leaf is ever whole on the card."""
+    impl = _merged(cfg, impl)
+
+    def serve_step(qparams, cache, tokens, pos):
+        return lm.decode_step(dequantize_outside_stack(qparams, cfg), cache,
+                              tokens, pos, cfg=cfg, impl=impl)
     return serve_step

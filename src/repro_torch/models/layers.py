@@ -166,6 +166,26 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+class _Bf16Logits(torch.autograd.Function):
+    """``torch.mm(x2, w, out_dtype=float32)`` for bf16 x2 [T, D] and w
+    [D, V] (that overload has no derivative), with the backward of the CPU
+    path's product of float32 copies: float32 products of the float32
+    cotangent, rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        gx = (g @ w.float().t()).to(x2.dtype) if need_x else None
+        gw = (x2.float().t() @ g).to(w.dtype) if need_w else None
+        return gx, gw
+
+
 def unembed(x: torch.Tensor, table_or_w: torch.Tensor,
             tied: bool) -> torch.Tensor:
     """float32 logits of the bf16-rounded hidden state (as JAX: the
@@ -176,7 +196,10 @@ def unembed(x: torch.Tensor, table_or_w: torch.Tensor,
     x2 = xb.reshape(-1, xb.shape[-1])
     if w.dtype == torch.bfloat16 and x2.is_cuda:
         # bf16 x bf16 -> float32 in one cuBLAS call: no float32 weight copy
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            out = _Bf16Logits.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         out = x2.float() @ w.float()       # .float() of a float32 w: no copy
     return out.reshape(*lead, w.shape[-1])

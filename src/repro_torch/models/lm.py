@@ -22,14 +22,23 @@ Caches are updated in place: ``prefill`` fills a cache it allocates,
 cache it is given and returns that same cache.  A cross-attending layer's
 cache also holds ``xkv``, the k and v of the encoder's output, written at
 prefill and read at every decode step.
+
+For training, ``forward`` takes ``remat`` (the layer stack under
+``torch.utils.checkpoint``, :func:`_run_stack`) and :func:`loss_fn` is the
+train step's next-token cross-entropy.  A stacked leaf of an int8 tree
+(``optim/quantize.py``) is dequantized where its layer uses it
+(:func:`_layer`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
 from repro_torch.core.loops import fori_loop
@@ -37,6 +46,7 @@ from repro_torch.core.regions import dispatch
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.params import DTYPES, spec, stack_tree, tree_map
+from repro_torch.optim import quantize as Q
 
 
 def _check_kind(kind: str) -> None:
@@ -161,9 +171,17 @@ def _empty(template, device) -> dict:
                                           device=device), template)
 
 
-def _layer(tree, i: int):
-    """Views of layer ``i`` of a stacked tree."""
-    return tree_map(lambda t: t[i], tree)
+def _layer(tree, i: int, dtype=None):
+    """Views of layer ``i`` of a stacked tree.  A quantized leaf
+    (``{"q", "scale"}``, ``optim/quantize.py``) is dequantized to ``dtype``
+    here: layer ``i``'s slice of q times the scale all layers share, the
+    values of JAX's whole-tree dequantization one layer at a time."""
+    if Q.is_quantized(tree):
+        return Q.dequantize_leaf({"q": tree["q"][i], "scale": tree["scale"]},
+                                 dtype)
+    if isinstance(tree, dict):
+        return {k: _layer(v, i, dtype) for k, v in tree.items()}
+    return tree[i]
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -296,7 +314,7 @@ def encode(params, frames, *, cfg: ModelConfig, impl=None):
     enc = params["encoder"]
 
     def body(i, x):
-        p = _layer(enc["stack"], i)
+        p = _layer(enc["stack"], i, dt)
         x = B.attn_apply(p["attn"], x, cfg=cfg, positions=positions,
                          impl=impl, causal=False)
         return B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
@@ -350,28 +368,104 @@ def _logits(params, x, cfg: ModelConfig):
     return L.unembed(x, table, cfg.tie_embeddings)
 
 
+# ---------------------------------------------------------------------------
+# Rematerialization of the layer stack (training)
+# ---------------------------------------------------------------------------
+REMAT_MODES = ("none", "dots", "full", "2level")
+# the products whose outputs the "dots" policy saves: matrix products with
+# no batch dims (JAX: dots_with_no_batch_dims_saveable); a batched product
+# (bmm, einsum over heads or experts) is recomputed like every other op
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(body, i: int, x, *, dots: bool):
+    """``body(i, x)`` under ``torch.utils.checkpoint``: saving only the
+    unit's input (``dots=False``, JAX's plain ``jax.checkpoint``) or also
+    its no-batch-dim products (``dots=True``)."""
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                          _dots_policy)} if dots else {}
+    return checkpoint(body, i, x, use_reentrant=False, **kw)
+
+
+def _closest_divisor(n: int, target: int) -> int:
+    best = 1
+    for d in range(1, n + 1):
+        if n % d == 0 and abs(d - target) < abs(best - target):
+            best = d
+    return best
+
+
+def _run_stack(unit_body, reps: int, x, remat: str):
+    """``unit_body`` over the ``reps`` units of the stack under ``remat``
+    (JAX's ``_scan_stack`` / ``_maybe_remat``): ``"none"`` saves what
+    autograd saves; ``"dots"`` checkpoints each unit saving its
+    no-batch-dim products; ``"full"`` checkpoints each unit saving nothing
+    inside it; ``"2level"`` splits the stack into G ~ sqrt(L) groups, each
+    group checkpointed whole (only the G group inputs are kept) and its
+    units on the dots policy inside.  The values are the same in every
+    mode."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
+    if remat == "none":
+        return fori_loop(0, reps, unit_body, x)
+    if remat != "2level":
+        return fori_loop(0, reps, lambda i, x: _checkpointed(
+            unit_body, i, x, dots=remat == "dots"), x)
+    g = _closest_divisor(reps, int(math.sqrt(reps)) or 1)
+    per = reps // g
+
+    def group(j, x):
+        return fori_loop(j * per, (j + 1) * per, lambda i, x: _checkpointed(
+            unit_body, i, x, dots=True), x)
+
+    return fori_loop(0, g, lambda j, x: _checkpointed(group, j, x, dots=False),
+                     x)
+
+
 def forward(params, tokens, *, cfg: ModelConfig, impl=None,
-            frontend_emb=None):
+            frontend_emb=None, remat: str = "none"):
     """Training/scoring forward.  tokens: [B, S] int; ``frontend_emb``: a
     frontend model's patch embeddings [B, S_f, frontend_dim] (prepended;
     optional) or mel frames [B, S_frames, frontend_dim] (encoded;
-    required).  Returns float32 logits [B, S, vocab] of the token
-    positions."""
+    required).  ``remat``: how the layer stack is rematerialized for the
+    backward (:func:`_run_stack`).  Returns float32 logits [B, S, vocab]
+    of the token positions."""
+    dt = DTYPES[cfg.dtype]
     x, n_front = _embed_inputs(params, cfg, tokens, frontend_emb)
     positions = _positions(x)
     enc = _encoded(params, cfg, frontend_emb, impl)
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
 
     def unit_body(i, x):
-        return _apply_unit_seq(_layer(params["stack"], i), x, cfg=cfg,
+        return _apply_unit_seq(_layer(params["stack"], i, dt), x, cfg=cfg,
                                kinds=unit_kinds, positions=positions,
                                impl=impl, enc=enc)
 
-    x = fori_loop(0, reps, unit_body, x)
+    x = _run_stack(unit_body, reps, x, remat)
     if tail_kinds:
         x = _apply_unit_seq(params["tail"], x, cfg=cfg, kinds=tail_kinds,
                             positions=positions, impl=impl, enc=enc)
     return _logits(params, x[:, n_front:], cfg)
+
+
+def loss_fn(params, batch, *, cfg: ModelConfig, impl=None,
+            remat: str = "none"):
+    """Next-token cross-entropy (float32).  batch: {'tokens', optional
+    'frames'/'patches'}."""
+    tokens = batch["tokens"]
+    logits = forward(params, tokens, cfg=cfg, impl=impl,
+                     frontend_emb=batch.get("patches", batch.get("frames")),
+                     remat=remat)
+    labels = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
@@ -394,6 +488,7 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
     such a tensor, so both take one path; it reads no value back to the
     host, so one CUDA graph per bucket serves every length in it.  None =
     every token is real."""
+    dt = DTYPES[cfg.dtype]
     x, n_front = _embed_inputs(params, cfg, tokens, frontend_emb)
     bsz, s_tot = x.shape[:2]
     ctx = max(ctx or s_tot, s_tot)   # the prefix counts toward the capacity
@@ -407,7 +502,8 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
 
     def unit_body(i, x):
         return _apply_unit_seq_exact(
-            _layer(params["stack"], i), _layer(cache["stack"], i), x, cfg=cfg,
+            _layer(params["stack"], i, dt), _layer(cache["stack"], i), x,
+            cfg=cfg,
             kinds=unit_kinds, positions=positions, impl=impl, enc=enc,
             ctx=ctx, length=valid)
 
@@ -428,11 +524,12 @@ def decode_step(params, cache, tokens, pos, *, cfg: ModelConfig, impl=None):
     """One decode step.  tokens: [B, 1] int; pos: [B] int absolute
     position of this token.  Writes the token's k/v (or the recurrent
     state) into ``cache`` in place; returns (logits [B, 1, V], cache)."""
+    dt = DTYPES[cfg.dtype]
     x = _embed(params, cfg, tokens)
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
 
     def unit_body(i, x):
-        return _apply_unit_decode(_layer(params["stack"], i),
+        return _apply_unit_decode(_layer(params["stack"], i, dt),
                                   _layer(cache["stack"], i), x, cfg=cfg,
                                   kinds=unit_kinds, pos=pos, impl=impl)
 

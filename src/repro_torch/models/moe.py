@@ -19,9 +19,12 @@ Precision and order follow the JAX code:
 * a one-hot is a comparison with ``arange`` (``jax.nn.one_hot`` gives a
   zero row out of range, where ``F.one_hot`` raises after a host sync);
 * the expert-choice combine adds each expert's outputs in expert order,
-  one expert at a time (a token appears at most once per expert), so it
-  is deterministic on a card, where an atomic scatter-add is not, and
-  rounds to the activations' type after each add, as JAX's scatter-add.
+  one expert at a time (a token appears at most once per expert, so no
+  two adds of one scatter-add meet), so it is deterministic on a card,
+  where one scatter-add over all experts is not, and rounds to the
+  activations' type after each add, as JAX's scatter-add.  The scatter-add
+  is in place and needs no earlier value of the output for its backward,
+  so the combine back-propagates.
 
 Nothing here reads a value back to the host: capacities and group counts
 are Python ints from static shapes, so a prefill or decode step with MoE
@@ -33,8 +36,9 @@ prefill check of ``models/moe_check.py``).  It acts only inside ``with
 log.active():`` on the thread that entered it; elsewhere the routing runs
 exactly as without it and adds no operation to a captured graph.  The JAX code's sharding constraints
 (``repro.parallel.ctx.constrain``) are the identity on one device; they
-come back with the multi-device slice.  ``aux_load_balance_loss`` is
-training and comes with the training slice.
+come back with the multi-device slice.  :func:`aux_load_balance_loss` is
+the Switch-style auxiliary loss; as in the JAX package no loss function
+calls it.
 """
 from __future__ import annotations
 
@@ -233,9 +237,17 @@ def moe_expert_choice(x, params, *, num_experts: int, k: int,
     ye = ye.reshape(e, g, c, d).transpose(0, 1)               # [G, E, C, D]
     ye = (ye * gate[..., None].to(ye.dtype)).to(x.dtype)
     # combine in expert order: the tokens of one expert are distinct, so
-    # each step is a gather, an add and a scatter without collisions
+    # each scatter-add has no collisions
     out = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
     for j in range(e):
-        at = idx[:, j, :, None].expand(g, c, d)
-        out.scatter_(1, at, out.gather(1, at) + ye[:, j])
+        out.scatter_add_(1, idx[:, j, :, None].expand(g, c, d), ye[:, j])
     return out.reshape(t, d)
+
+
+def aux_load_balance_loss(probs: torch.Tensor, gate_idx: torch.Tensor,
+                          num_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss (fraction * prob): probs
+    [T, E], gate_idx [T, k] (the first choice counts)."""
+    me = probs.float().mean(dim=0)                             # [E]
+    ce = _one_hot(gate_idx[:, 0], num_experts, torch.float32).mean(dim=0)
+    return num_experts * torch.sum(me * ce)

@@ -68,21 +68,39 @@ def stack_tree(n: int, tree):
     return tree_map(lambda s: stacked(n, s), tree)
 
 
-def _normal(shape, factor: float, dtype, generator) -> torch.Tensor:
-    """float32 normals times ``factor``, cast to ``dtype``; drawn one
-    leading-dim slice at a time for stacked specs, so the float32 scratch
-    stays the size of one layer."""
-    dev = generator.device
-    out = torch.empty(shape, dtype=dtype, device=dev)
-    slices = [out] if len(shape) < 3 else list(out)
-    for dst in slices:
-        draw = torch.randn(dst.shape, generator=generator, device=dev,
+def normal_factor(s: ParamSpec) -> Optional[float]:
+    """The standard deviation of a ``normal`` or ``scaled`` spec's draw,
+    else None."""
+    if s.init == "scaled":
+        # shape[0]: for a stacked spec that is the layer count (as in JAX)
+        fan_in = s.shape[0] if len(s.shape) >= 2 else max(math.prod(s.shape), 1)
+        return 1.0 / math.sqrt(fan_in)
+    if s.init == "normal":
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
+        return s.scale / math.sqrt(fan_in)
+    return None
+
+
+def normal_draws(s: ParamSpec, generator: torch.Generator):
+    """The values of a ``normal``/``scaled`` spec in the spec's type, in
+    draw order: float32 normals times :func:`normal_factor`, one
+    leading-dim slice at a time for a stacked spec (ndim >= 3), so the
+    float32 scratch stays the size of one layer; else the whole leaf."""
+    factor, dt, dev = normal_factor(s), DTYPES[s.dtype], generator.device
+    parts = [s.shape] if len(s.shape) < 3 else [s.shape[1:]] * s.shape[0]
+    for shape in parts:
+        draw = torch.randn(shape, generator=generator, device=dev,
                            dtype=torch.float32)
-        dst.copy_(draw.mul_(factor))
-    return out
+        yield draw.mul_(factor).to(dt)
 
 
-def _materialize(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+def leading_slices(t: torch.Tensor) -> list:
+    """``t`` itself, or its leading-dim slices when it is stacked (ndim >=
+    3): the parts :func:`normal_draws` yields."""
+    return [t] if t.dim() < 3 else list(t)
+
+
+def materialize(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     dt = DTYPES[s.dtype]
     dev = generator.device
     if s.init == "zeros":
@@ -96,18 +114,16 @@ def _materialize(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
         n = s.shape[-1]
         a = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
         return a.expand(s.shape).to(dt).contiguous()
-    if s.init == "scaled":
-        # shape[0]: for a stacked spec that is the layer count (as in JAX)
-        fan_in = s.shape[0] if len(s.shape) >= 2 else max(math.prod(s.shape), 1)
-        return _normal(s.shape, 1.0 / math.sqrt(fan_in), dt, generator)
-    if s.init == "normal":
-        fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
-        return _normal(s.shape, s.scale / math.sqrt(fan_in), dt, generator)
+    if s.init in ("scaled", "normal"):
+        out = torch.empty(s.shape, dtype=dt, device=dev)
+        for dst, draw in zip(leading_slices(out), normal_draws(s, generator)):
+            dst.copy_(draw)
+        return out
     raise ValueError(f"unknown init {s.init!r}")
 
 
 def init(template, generator: torch.Generator):
     """Materialize a template on ``generator.device``, leaf by leaf in the
     template's order."""
-    return tree_map(lambda s: _materialize(s, generator), template)
+    return tree_map(lambda s: materialize(s, generator), template)
 

@@ -1020,3 +1020,129 @@ def test_whisper_encoder_launches_flash_and_cross_attention_refuses_it_on_cuda(
     finally:
         FA.flash_attention_plain = plain
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# One-card training and int8 decode (phases 18-19 of chip_smoke.py)
+# ---------------------------------------------------------------------------
+def _train_pieces(arch, device):
+    import functools
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.optim.schedule import constant
+    from repro_torch.parallel.rules import ParallelismConfig
+    from repro_torch.runtime import steps as TS
+    cfg = get_config(arch).reduced()
+    state = TS.init_train_state(cfg, torch.Generator(device=device)
+                                .manual_seed(0))
+    data = SyntheticLM(cfg, 2, 64, seed=0)
+    steps = {m: TS.make_train_step(cfg, ParallelismConfig(remat=m),
+                                   lr_fn=functools.partial(constant,
+                                                           peak_lr=1e-2))
+             for m in ("dots", "full")}
+    return state, steps, lambda: to_device(next(data), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mixtral-8x7b",
+                                  "whisper-small"])
+def test_train_step_loss_falls_and_remat_modes_agree_on_cuda(cuda_device,
+                                                             arch):
+    from repro_torch.models.params import tree_leaves, tree_map
+    state, steps, batch = _train_pieces(arch, cuda_device)
+    losses = []
+    for _ in range(6):
+        state, m = steps["dots"](state, batch())
+        losses.append(m["loss"].item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    b = batch()
+    saved = tree_map(torch.clone, state)
+    _, dots = steps["dots"](state, b)
+    for dst, src in zip(tree_leaves(state), tree_leaves(saved)):
+        dst.copy_(src)
+    _, full = steps["full"](state, b)
+    assert dots["loss"].item() == full["loss"].item()
+    assert abs(dots["grad_norm"].item() - full["grad_norm"].item()) <= (
+        1e-3 * dots["grad_norm"].item())
+
+
+@pytest.mark.cuda
+def test_bf16_logits_backward_is_the_float32_products_on_cuda(cuda_device):
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 8, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(64, 300, generator=g, device=cuda_device) / 8).to(
+        torch.bfloat16).requires_grad_(True)
+    out = L.unembed(x, w, False)
+    assert out.dtype == torch.float32
+    seed = torch.randn(out.shape, generator=g, device=cuda_device)
+    gx, gw = torch.autograd.grad((out * seed).sum(), (x, w))
+    xf, wf = x.detach().float().requires_grad_(True), w.detach().float(
+        ).requires_grad_(True)
+    ref = xf.to(torch.bfloat16).float() @ wf
+    rx, rw = torch.autograd.grad((ref * seed).sum(), (xf, wf))
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gx, rx.to(torch.bfloat16), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(gw, rw.to(torch.bfloat16), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_hopper_entry_points_refuse_gradients_on_cuda(cuda_device):
+    q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = FA.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q.clone().requires_grad_(True), q, q)
+    x = torch.randn(4, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        RN.rmsnorm(x, torch.zeros(64, device=cuda_device))
+    assert FA.flash_attention.launches == before
+    with torch.no_grad():
+        FA.flash_attention(q.clone().requires_grad_(True), q, q)
+    assert FA.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_quantized_decode_equals_the_dequantized_tree_on_cuda(cuda_device):
+    """At-use dequantization against the whole dequantized tree, bf16 on
+    the card: the same weights, so the same logits bit for bit; and the
+    slice-by-slice draw equals quantizing the whole draw."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import factory as F
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import quantize as Q
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = F.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(5))
+    qparams = Q.quantize_params(params)
+    drawn = Q.init_quantized(lm.model_template(cfg), torch.Generator(
+        device=cuda_device).manual_seed(5))
+    for a, b in zip(tree_leaves(drawn), tree_leaves(qparams)):
+        assert torch.equal(a, b)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 12), device=cuda_device)
+    _, cache = F.make_prefill_step(cfg, ctx=16)(params, {"tokens": tokens})
+    pos = torch.full((4,), 12, dtype=torch.int32, device=cuda_device)
+    got, _ = F.make_quantized_serve_step(cfg)(
+        qparams, tree_map(torch.clone, cache), tokens[:, -1:], pos)
+    want, _ = F.make_serve_step(cfg)(Q.dequantize_params(qparams),
+                                     cache, tokens[:, -1:], pos)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_cuda_state_restores_bit_for_bit(cuda_device,
+                                                         tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.params import tree_leaves
+    state, steps, batch = _train_pieces("mistral-nemo-12b", cuda_device)
+    state, _ = steps["dots"](state, batch())
+    ck = CheckpointManager(str(tmp_path))
+    ck.save_async(1, state)
+    ck.wait()
+    fresh, _, _ = _train_pieces("mistral-nemo-12b", cuda_device)
+    restored, meta = ck.restore(fresh)
+    assert meta["step"] == 1
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.device == b.device and torch.equal(a, b)

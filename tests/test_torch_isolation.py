@@ -60,6 +60,33 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not _FORBIDDEN.search("from repro_torch.core import regions")
 
 
+_SUBPACKAGE_PROBE = """
+import importlib, pkgutil, sys
+pkg = importlib.import_module(sys.argv[1])
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib"
+             or n.startswith("jaxlib.") or n == "repro" or n.startswith("repro."))
+print(names, bad)
+sys.exit(1 if bad or not names else 0)
+"""
+
+
+@pytest.mark.parametrize("package", ["optim", "runtime", "data", "checkpoint",
+                                     "parallel"])
+def test_training_subpackages_load_no_jax_and_no_repro(package):
+    """The training slice's subpackages, each imported alone in a fresh
+    interpreter: every module of it loads, and neither JAX nor the JAX
+    package comes with them."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _SUBPACKAGE_PROBE,
+                           f"repro_torch.{package}"], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _entry_points():
     from repro_torch.apps import from_numpy, mriq, tdfir
     from repro_torch.apps.decode_attn import make_decode_program
@@ -68,6 +95,10 @@ def _entry_points():
                                     replanning, serve, strategies)
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.offload_program import make_lm_program
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train, train_lm
+    from repro_torch.parallel.rules import ParallelismConfig
+    from repro_torch.runtime.loop import run_training
     x = np.zeros((2, 8), np.complex64)
     return {
         "resolve_device": lambda: resolve_device(),
@@ -92,6 +123,12 @@ def _entry_points():
         "replanning.main": lambda: replanning.main([]),
         "serve.main --replan-on-drift": lambda: serve.main(
             ["--arch", "recurrentgemma-2b", "--reduced", "--replan-on-drift"]),
+        "train.main": lambda: train.main(["--arch", "mistral-nemo-12b",
+                                          "--reduced"]),
+        "train_lm.main": lambda: train_lm.main(["--steps", "1"]),
+        "run_training": lambda: run_training(
+            get_config("mistral-nemo-12b").reduced(), ParallelismConfig(),
+            None, iter([])),
     }
 
 

@@ -228,6 +228,20 @@ Phases, each printed as it runs; any failure exits non-zero:
    step's host-clock time, its device time (``torch.profiler``) and its
    int8 weight-streaming bound (every int8 byte with the scales, and the
    cache, once, at 3.35 TB/s), and the peak memory.
+20. mesh — the slice-13 path, on a world of 1 over NCCL and a 1x1
+   ``DeviceMesh``: (a) phase 18's model, seed, batch, preset and lr
+   through ``run_training(..., mesh, ...)`` for 3 steps: its losses and
+   grad norms must equal phase 18's first 3 bit for bit; the step time
+   and peak memory are printed beside phase 18's; (b) recurrentgemma-2b
+   at full width serves a [4, 2,048] prefill and 8 greedy decode steps
+   through ``prefill_shardings`` / ``serve_shardings`` with
+   ``attn_core`` and ``rglru_scan`` on hopper: the logits must equal the
+   same steps without the mesh bit for bit, and flash_attention and
+   rglru_scan must launch; (c) the dry-run (``launch/dryrun.py``) of
+   qwen2-72b decode_32k on the 16x16 mesh and arctic-480b decode_32k on
+   2x16x16, on fake devices on the host, one process each at once (a
+   time limit each): status ok; per-device GB, flops, collective bytes,
+   the ops the context gathered and the wall time are printed.
 
 Phases 6, 8, 9, 14, 15 and 16 print the decode step's device time beside
 its weight-streaming bound: every weight the step reads and the whole
@@ -247,6 +261,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -386,6 +401,23 @@ QUANT_PROMPT = 2048
 QUANT_CHECK_STEPS = 4
 QUANT_DECODE_STEPS = 16
 QUANT_MIN_COSINE = 0.99
+# phase 20: the mesh path on a world of 1 over NCCL (a 1x1 DeviceMesh).
+# a: phase 18's model, seed, batch, preset and lr through run_training on
+# the mesh for MESH_TRAIN_STEPS steps: its losses and grad norms must
+# equal phase 18's first steps bit for bit (the CPU tests show the 1x1
+# mesh bit for bit against no mesh).  b: recurrentgemma-2b prefill of
+# [MESH_SLOTS, MESH_PROMPT] and MESH_DECODE_STEPS greedy decode steps
+# through prefill_shardings / serve_shardings with attn_core and
+# rglru_scan on hopper, equal to the same steps without the mesh.  c: the
+# dry-run of two full-width cells on fake devices, on the host, in two
+# processes at once, each with a time limit.  qwen2-72b's train_4k cell
+# ran past 75 s on the card's host (PERF.md, PR 24), so its decode_32k
+# cell stands in for it
+MESH_TRAIN_STEPS = 3
+MESH_SLOTS, MESH_PROMPT, MESH_DECODE_STEPS = 4, 2048, 8
+MESH_DRYRUN_CELLS = (("qwen2-72b", "decode_32k", "single"),
+                     ("arctic-480b", "decode_32k", "multi"))
+MESH_CELL_S = 150
 
 
 _START = time.perf_counter()
@@ -2919,11 +2951,11 @@ def main() -> int:
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
         secs.append(time.perf_counter() - t0)
+    peak18 = torch.cuda.max_memory_allocated(dev) / gib
     print(f"{TRAIN_STEPS} steps under dots: losses "
           f"{[round(x, 4) for x in losses]}; grad norms "
           f"{[round(x, 3) for x in norms]}; seconds a step "
-          f"{[round(x, 2) for x in secs]}; peak "
-          f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB [{card}]")
+          f"{[round(x, 2) for x in secs]}; peak {peak18:.2f} GiB [{card}]")
     if not all(math.isfinite(x) for x in losses + norms) or not (
             losses[-1] < losses[0]):
         raise AssertionError(f"train {HYBRID_ARCH}: the loss is not finite or "
@@ -3121,6 +3153,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 20. the mesh path (slice 13) -----------------------------------
+    phase("20. mesh")
+    t20 = time.perf_counter()
+    mesh_phase(torch, dev, card, counters, lr_fn, pcfg,
+               losses[:MESH_TRAIN_STEPS], norms[:MESH_TRAIN_STEPS],
+               secs[:MESH_TRAIN_STEPS], peak18)
+    print(f"phase wall {time.perf_counter() - t20:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")
     print("kernels: " + ", ".join(f"{n} ported (cuda)" for n in names)
@@ -3136,6 +3178,212 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _dryrun_cell(cell, out: Path, limit_s: float):
+    """Start one full-width dry-run cell in a process of its own, on the
+    host; :func:`_dryrun_wait` collects it."""
+    arch, shape, mesh = cell
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh, "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, t0, limit_s
+
+
+def _dryrun_wait(started, cell, out: Path):
+    """(record, wall seconds) of a cell :func:`_dryrun_cell` started, or
+    (None, wall) when it ran past its time limit (then killed)."""
+    proc, t0, limit_s = started
+    try:
+        log, _ = proc.communicate(timeout=max(limit_s - (
+            time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        return None, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    recs = [json.loads(line) for line in out.read_text().splitlines()
+            if line.strip()] if out.exists() else []
+    rec = next((r for r in reversed(recs)
+                if (r["arch"], r["shape"], r["mesh"]) == cell), None)
+    if rec is None:
+        raise AssertionError(f"dry-run {cell}: no record; log {log[-2000:]}")
+    return rec, wall
+
+
+def mesh_phase(torch, dev, card, counters, lr_fn, pcfg, losses18, norms18,
+               secs18, peak18) -> None:
+    """Phase 20 (module docstring): a world of 1 over NCCL."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.regions import Impl
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import factory as F
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.ctx import parallel_context
+    from repro_torch.runtime.loop import LoopConfig, run_training
+
+    gib = 2 ** 30
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh(1, 1)
+        rg = get_config(HYBRID_ARCH)
+        print(f"world of {dist.get_world_size()} over "
+              f"{dist.get_backend()}; mesh {mesh}")
+
+        # a. train through run_training on the mesh
+        for counter in counters:
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_training(rg, pcfg, mesh,
+                           SyntheticLM(rg, TRAIN_BATCH, TRAIN_SEQ, seed=18),
+                           LoopConfig(total_steps=MESH_TRAIN_STEPS,
+                                      checkpoint_every=0, log_every=0),
+                           seed=18, lr_fn=lr_fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / gib
+        print(f"a. {HYBRID_ARCH} on the 1x1 mesh, {MESH_TRAIN_STEPS} steps "
+              f"through run_training in {time.perf_counter() - t0:.1f} s: "
+              f"losses {res.losses!r}, grad norms {res.grad_norms!r}; "
+              f"phase 18's first {MESH_TRAIN_STEPS}: {losses18!r}, "
+              f"{norms18!r}")
+        print(f"   seconds a step on the mesh "
+              f"{[round(x, 3) for x in res.step_times]} against phase 18's "
+              f"{[round(x, 3) for x in secs18]} (median gap "
+              f"{statistics.median(res.step_times) - statistics.median(secs18):+.3f}"
+              f" s: DTensor dispatch on the host); peak {peak:.2f} GiB "
+              f"against phase 18's {peak18:.2f} GiB; gathered "
+              f"{dict(res.gathered)} [{card}]")
+        if res.losses != losses18 or res.grad_norms != norms18:
+            raise AssertionError("mesh train: losses or grad norms differ "
+                                 "from phase 18's")
+        if any(c.launches for c in counters):
+            raise AssertionError("a hopper kernel launched in a train step")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # b. prefill + greedy decode through the step shardings, hopper
+        impl = Impl({"attn_core": "hopper", "rglru_scan": "hopper"})
+        spcfg = dataclasses.replace(pcfg, remat="none")
+        ctx = MESH_PROMPT + MESH_DECODE_STEPS
+        params = F.init_params(rg, torch.Generator(device=dev).manual_seed(20))
+        batch = F.synthetic_batch(rg, MESH_SLOTS, MESH_PROMPT, seed=200)
+        pre_shape = ShapeConfig("mesh_prefill", MESH_PROMPT, MESH_SLOTS,
+                                "prefill")
+        dec_shape = ShapeConfig("mesh_decode", ctx, MESH_SLOTS, "decode")
+        (p_sh, _), (l_sh, _) = SH.prefill_shardings(rg, pre_shape, mesh,
+                                                    spcfg)
+        (_, c_sh, t_sh, q_sh), (dl_sh, _) = SH.serve_shardings(
+            rg, dec_shape, mesh, spcfg)
+        dparams = SH.distribute(params, p_sh)
+        prefill = F.make_prefill_step(rg, impl=impl, ctx=ctx)
+        serve = F.make_serve_step(rg, impl=impl)
+
+        gathered = {}
+
+        def greedy(prm, on_mesh):
+            toks, logits = [], []
+            with torch.no_grad(), (parallel_context(mesh, spcfg) if on_mesh
+                                   else contextlib.nullcontext()) as pc:
+                b = (shard_batch(batch, mesh, spcfg) if on_mesh else
+                     {k: torch.from_numpy(v).to(dev)
+                      for k, v in batch.items()})
+                lg, cache = prefill(prm, b)
+                if on_mesh:
+                    lg, cache = SH.distribute((lg, cache), (l_sh, c_sh))
+                for i in range(MESH_DECODE_STEPS + 1):
+                    whole = lg.full_tensor() if on_mesh else lg
+                    logits.append(whole[:, -1].float())
+                    tok = whole[:, -1].argmax(-1).to(torch.int32)
+                    toks.append(tok.tolist())
+                    if i == MESH_DECODE_STEPS:
+                        break
+                    pos = torch.full((MESH_SLOTS,), MESH_PROMPT + i,
+                                     dtype=torch.int32, device=dev)
+                    t_in = tok[:, None]
+                    if on_mesh:
+                        t_in = SH.distribute(t_in, t_sh)
+                        pos = SH.distribute(pos, q_sh)
+                    lg, cache = serve(prm, cache, t_in, pos)
+                    if on_mesh:
+                        lg = SH.distribute(lg, dl_sh)
+            if pc is not None:
+                gathered.update(pc.gathered)
+            return toks, torch.stack(logits)
+
+        t0 = time.perf_counter()
+        toks_p, lg_p = greedy(params, False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        toks_m, lg_m = greedy(dparams, True)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        diff = float((lg_m - lg_p).abs().max())
+        print(f"b. [{MESH_SLOTS}, {MESH_PROMPT}] prefill + "
+              f"{MESH_DECODE_STEPS} greedy decode steps, attn_core and "
+              f"rglru_scan on hopper: on the mesh {mesh_s:.2f} s, without "
+              f"{plain_s:.2f} s; max |logit difference| {diff!r}; "
+              f"greedy tokens per slot equal: {toks_m == toks_p}; launches "
+              f"on the mesh {launches}; gathered {gathered} [{card}]")
+        if not torch.equal(lg_m, lg_p) or toks_m != toks_p:
+            raise AssertionError("mesh serve: logits differ from the same "
+                                 "steps without the mesh")
+        if not (launches["flash_attention"] and launches["rglru_scan"]):
+            raise AssertionError("mesh serve: flash_attention or rglru_scan "
+                                 "did not launch under the mesh")
+        del params, dparams
+    finally:
+        dist.destroy_process_group()
+
+    # c. the full-width dry-run cells (host, fake devices), one process a
+    # cell, each writing its own JSONL
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    files = {cell: out_dir / f"dryrun_{cell[0]}_{cell[1]}_{cell[2]}.jsonl"
+             for cell in MESH_DRYRUN_CELLS}
+    for f in files.values():
+        if f.exists():
+            f.unlink()
+    started = {cell: _dryrun_cell(cell, files[cell], MESH_CELL_S)
+               for cell in MESH_DRYRUN_CELLS}
+    results = {cell: _dryrun_wait(started[cell], cell, files[cell])
+               for cell in MESH_DRYRUN_CELLS}
+    for cell, (rec, wall) in results.items():
+        if rec is None or rec["status"] != "ok":
+            raise AssertionError(f"dry-run {cell}: " + (
+                f"ran past {MESH_CELL_S} s" if rec is None
+                else rec.get("error", "")))
+        mem, hc = rec["memory"], rec["hlo_cost"]
+        print(f"c. dry-run {' '.join(cell)} on {rec['devices']} fake "
+              f"devices: {rec['status']}, {wall:.1f} s wall (step "
+              f"{rec['run_s']} s); per device "
+              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB "
+              f"(arguments {mem['argument_bytes'] / 1e9:.2f}, temp "
+              f"{mem['temp_bytes'] / 1e9:.2f}), {hc['flops']:.4e} flops, "
+              f"{hc['hbm_fused']:.4e} HBM bytes, collectives "
+              f"{rec['collectives']['total_bytes']:.4e} B "
+              f"{rec['collectives']['counts']}; pcfg {rec['pcfg']}; "
+              f"gathered {rec['gathered']}")
 
 
 if __name__ == "__main__":

@@ -16,6 +16,10 @@ checkpoint either package writes restores into the other's state:
 * Preemption: :meth:`install_sigterm_handler` flushes a final checkpoint
   on SIGTERM and exits with 143; the handler it replaced is put back then,
   or by :meth:`restore_sigterm_handler`.
+* Meshes: a DTensor leaf is saved whole (every rank takes part in its
+  gather; rank 0 writes), and :meth:`restore` with ``shardings`` lays each
+  leaf out over any mesh's placements — the elastic path: a checkpoint of
+  one mesh (or of one device) restores onto another.
 """
 from __future__ import annotations
 
@@ -44,10 +48,20 @@ def _items(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or the one process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A tensor (or number) as a NumPy array; bf16 as its uint16 bits."""
+    """A tensor (or number) as a NumPy array; bf16 as its uint16 bits; a
+    DTensor whole."""
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -78,8 +92,13 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, state, extra: Optional[dict] = None) -> str:
-        """Synchronous atomic save."""
-        return self._write(step, *_snapshot(state), extra or {})
+        """Synchronous atomic save (under a process group every rank
+        returns once rank 0 has written it)."""
+        path = self._write(step, *_snapshot(state), extra or {})
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.barrier()
+        return path
 
     def save_async(self, step: int, state,
                    extra: Optional[dict] = None) -> None:
@@ -98,6 +117,8 @@ class CheckpointManager:
 
     def _write(self, step: int, flat: dict, dtypes: dict, extra: dict) -> str:
         final = os.path.join(self.dir, f"step_{step:08d}")
+        if not _writes():
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -136,9 +157,13 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, template, step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> tuple[Any, dict]:
         """Restore into the structure of ``template`` (a tree of tensors):
-        each leaf comes back in the template leaf's type, on its device."""
+        each leaf comes back in the template leaf's type, on its device.
+        With ``shardings`` (a tree of ``parallel.rules.NamedSharding``, for
+        any mesh, whatever the save ran on) each leaf comes back as a
+        DTensor laid out by its sharding: the elastic-rescale path."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -163,12 +188,19 @@ class CheckpointManager:
                 t = torch.from_numpy(arr)
             return t.to(device=leaf.device, dtype=leaf.dtype)
 
-        def build(tree, prefix=""):
+        def build(tree, sh, prefix=""):
             if isinstance(tree, dict):
-                return {k: build(v, f"{prefix}{k}/") for k, v in tree.items()}
-            return one(prefix[:-1], tree)
+                return {k: build(v, None if sh is None else sh[k],
+                                 f"{prefix}{k}/") for k, v in tree.items()}
+            t = one(prefix[:-1], tree)
+            if sh is None:
+                return t
+            from torch.distributed.tensor import distribute_tensor
+            # every rank read the same file: each keeps its block
+            return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                     sh.placements, src_data_rank=None)
 
-        return build(template), meta
+        return build(template, shardings), meta
 
     # ------------------------------------------------------------------
     def install_sigterm_handler(self, get_state: Callable[[], tuple[int, Any]]):

@@ -103,6 +103,20 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can decode at 500k context without a full-size
+        dense KV cache (SSM state / bounded local window)."""
+        if self.family == "ssm":
+            return True
+        return (self.family == "hybrid" and self.attn_window > 0
+                and ATTN not in tuple(self.layer_pattern))
+
+    @property
+    def has_decoder(self) -> bool:
+        """False only for encoder-only archs (none assigned)."""
+        return True
+
     def layer_kinds(self) -> list[str]:
         """Expanded per-layer block kinds for the decoder stack."""
         if self.family == "ssm":
@@ -219,6 +233,17 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The JAX package's cell rules: long_500k only for sub-quadratic
+    archs; decode only for archs with a decoder."""
+    if shape.kind == "decode" and not cfg.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("long_500k needs sub-quadratic attention; %s is "
+                       "full-attention" % cfg.name)
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ the step's draws come from ``np.random.default_rng(seed * 1_000_003 +
 step)``, the same recipe (80% bigram-following tokens, 20% uniform noise,
 a uniform first token; standard-normal frontend stubs) from another
 stream.  The batches are NumPy host arrays, as ``factory.synthetic_batch``
-gives; :func:`to_device` puts one on the card (the one-device
-``shard_batch``, which waits for the multi-device slice).  Frontend stubs
+gives; :func:`to_device` puts one on one device, :func:`shard_batch`
+distributes one over a mesh (dim 0 over the data axes).  Frontend stubs
 are float32 holding bf16 values (NumPy has no bf16; the models cast on the
 device).
 """
@@ -87,3 +87,19 @@ class SyntheticLM:
 def to_device(batch: dict, device) -> dict:
     """A host batch as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def shard_batch(batch: dict, mesh, pcfg) -> dict:
+    """A host batch as DTensors over ``mesh`` with the standard batch
+    shardings (every rank holds the same host batch; each keeps its
+    block)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.rules import batch_shardings
+
+    shardings = batch_shardings(batch, mesh, pcfg)
+    dev = mesh.device_type
+    return {k: distribute_tensor(torch.as_tensor(v).to(dev), mesh,
+                                 shardings[k].placements,
+                                 src_data_rank=None)
+            for k, v in batch.items()}

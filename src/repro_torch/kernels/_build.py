@@ -22,6 +22,7 @@ without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -160,6 +161,34 @@ def refuse_grad(kernel: str, region: str, *tensors) -> None:
             f"and an input requires grad; the train step takes the region's "
             f"ref/offload variants (factory.default_impl), or call the kernel "
             f"under torch.no_grad()")
+
+
+def on_mesh(fn):
+    """A kernel entry point under a mesh, as JAX hands a Pallas custom call
+    gathered operands under GSPMD: each DTensor argument is redistributed
+    to ``Replicate``, the kernel runs on the whole local tensors (on a 1x1
+    mesh, the kernel on the whole tensor), and each tensor it returns
+    comes back as a ``Replicate`` DTensor for the next ``constrain`` to
+    reshard.  Without a DTensor argument it is the entry point itself.
+    Nothing here switches to the plain version: a CUDA tensor still
+    launches the kernel or raises."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        from repro_torch.parallel import ctx as PC
+
+        dts = [a for a in list(args) + list(kwargs.values())
+               if PC._is_dtensor(a)]
+        if not dts:
+            return fn(*args, **kwargs)
+        mesh = dts[0].device_mesh
+        largs = [PC.gather_local(a, mesh) for a in args]
+        lkwargs = {k: PC.gather_local(v, mesh) for k, v in kwargs.items()}
+        with PC.local_region():
+            out = fn(*largs, **lkwargs)
+        if isinstance(out, tuple):
+            return tuple(PC.replicated_dtensor(o, mesh) for o in out)
+        return PC.replicated_dtensor(out, mesh)
+    return entry
 
 
 def declare(lib: ctypes.CDLL, signatures: dict) -> None:

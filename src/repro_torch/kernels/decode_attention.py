@@ -140,6 +140,7 @@ def occupancy(group: int, head_dim: int, block_k: int, dtype) -> int:
                                              int(dtype == torch.bfloat16))
 
 
+@_build.on_mesh
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_pos: torch.Tensor,
                      cur_pos: torch.Tensor, *, window: int = 0,

@@ -120,6 +120,7 @@ def kernel_attributes(tap_unroll: int = 1) -> dict:
                                   tap_unroll)
 
 
+@_build.on_mesh
 def fir_filter_bank(x: torch.Tensor, h: torch.Tensor, *,
                     block_n: int = DEFAULT_BLOCK_N,
                     tap_unroll: int = 1) -> torch.Tensor:

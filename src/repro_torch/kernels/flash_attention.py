@@ -163,6 +163,7 @@ def kernel_attributes(block_q: int, block_k: int, head_dim: int,
                                   int(_bf16(dtype)))
 
 
+@_build.on_mesh
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_q: int | None = None,

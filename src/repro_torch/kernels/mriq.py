@@ -58,6 +58,7 @@ def kernel_attributes() -> dict:
     return _build.func_attributes(_lib(), "mriq_compute_q_attributes")
 
 
+@_build.on_mesh
 def mriq_compute_q(x, y, z, kx, ky, kz, phi_mag):
     """All inputs float32 1-D: voxels x, y, z [numX]; samples kx, ky, kz,
     phiMag [numK].  Returns (Q_re [numX], Q_im [numX])."""

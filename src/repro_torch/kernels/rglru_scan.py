@@ -94,6 +94,7 @@ def kernel_attributes(time_chunk: int = DEFAULT_TIME_CHUNK,
                                   time_chunk, int(bf16))
 
 
+@_build.on_mesh
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
                block_c: int = DEFAULT_BLOCK_C,
                time_chunk: int = DEFAULT_TIME_CHUNK):

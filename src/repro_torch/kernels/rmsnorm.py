@@ -63,6 +63,7 @@ def kernel_attributes(bf16: bool = True, w_bf16: bool = True) -> dict:
                                   int(w_bf16))
 
 
+@_build.on_mesh
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: [..., D] bf16 or float32 with a contiguous last dim; w: [D]

@@ -75,6 +75,7 @@ def kernel_attributes(n: int = 16, time_chunk: int = DEFAULT_TIME_CHUNK,
                                   time_chunk, int(bf16))
 
 
+@_build.on_mesh
 def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
              h0: torch.Tensor, *, block_c: int = DEFAULT_BLOCK_C,
              time_chunk: int = DEFAULT_TIME_CHUNK):

@@ -4,8 +4,11 @@ the JAX package's ``launch/constants.py``).
 The published figures of NVIDIA's H100 SXM data sheet, dense rates without
 sparsity, at the card's full 700 W power limit.  A card set below 700 W
 runs slower under load, so a bound taken from these figures is the least
-time of a card at the full limit.  The collective (NVLink) and multi-node
-terms come with the multi-device slice.
+time of a card at the full limit.  The collective rates are those of a
+DGX H100 node: NVLink 4 inside a node of 8 GPUs, one 400 Gb/s ConnectX-7
+link a GPU between nodes.  Every axis of the 16-wide production meshes
+(``launch/mesh.py``) spans more than one node, so the roofline's
+collective term (``launch/roofline.py``) reads the inter-node rate.
 
 Every other module of the port, and ``chip_smoke.py``, reads the card's
 figures from here, lower layers too (``core/cost_model.py``,
@@ -24,6 +27,13 @@ HBM_BYTES = 80 * 1024**3        # device memory
 SFU_RATE = PEAK_FLOPS_FP32 / 16
 SMEM_PER_BLOCK = 232_448        # shared memory one block may use (227 KB)
 L2_BYTES = 50 * 1024 * 1024     # L2 cache
+# NVLink 4, both directions together, per GPU (H100 SXM data sheet)
+NVLINK_BW = 900e9
+# one 400 Gb/s ConnectX-7 a GPU (DGX H100 data sheet), bytes/s one way
+INTER_NODE_BW = 400e9 / 8
+GPUS_PER_NODE = 8               # a DGX/HGX H100 node
+SINGLE_POD_CHIPS = 256          # the 16x16 production mesh
+MULTI_POD_CHIPS = 512           # the 2x16x16 production mesh
 
 
 def projected_seconds(flops: float, hbm_bytes: float,

@@ -10,11 +10,15 @@ or figure (the twin of ``benchmarks/run.py``).
                 warm re-open measurement budget (serving/replan.py)
   kernels       the model regions' variants timed on the device + H100
                 roofline projection
+  roofline      H100 roofline terms of each cell of a dry-run JSONL
+                (``launch/dryrun.py``; given with ``--dryrun``)
+  scaling       single- vs multi-pod weak scaling of the same JSONL
 
 The JAX harness's ``autotune``, ``verification`` and ``faults`` sections
-come with the next slice of the port, and ``roofline`` and ``scaling``
-(which read the multi-device dry-run's JSONL) with the multi-device
-slice: asking for one of them exits non-zero and says so.
+come with the next slice of the port: asking for one of them exits
+non-zero and says so.  ``roofline`` and ``scaling`` read the JSONL given
+with ``--dryrun`` and run on the host only; ``all`` takes them when it
+is given.
 
 With ``--json`` every section but fig4 writes ``BENCH_<section>.json``
 into ``--out`` (default: the current directory), the documents
@@ -30,13 +34,13 @@ import importlib
 import os
 
 SECTIONS = ("all", "conditions", "extraction", "strategies", "replanning",
-            "fig4", "kernels")
+            "fig4", "kernels", "roofline", "scaling")
+# the sections that read a dry-run JSONL (--dryrun) instead of a device
+DRYRUN_SECTIONS = ("roofline", "scaling")
 # the JAX harness's sections that the port does not have yet
 LATER = {"autotune": "the next slice of the port",
          "verification": "the next slice of the port",
-         "faults": "the next slice of the port",
-         "roofline": "the multi-device slice of the port",
-         "scaling": "the multi-device slice of the port"}
+         "faults": "the next slice of the port"}
 
 
 def main(argv=None) -> dict:
@@ -54,10 +58,15 @@ def main(argv=None) -> dict:
                     help="small apps and models (for the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; raises without a card)")
+    ap.add_argument("--dryrun", default=None,
+                    help="roofline/scaling sections: the dry-run JSONL")
     a = ap.parse_args(argv)
     if a.section in LATER:
         ap.exit(2, f"run: the {a.section} section comes with "
                    f"{LATER[a.section]}\n")
+    if a.section in DRYRUN_SECTIONS and not a.dryrun:
+        ap.error(f"the {a.section} section reads a dry-run JSONL: give it "
+                 "with --dryrun (python -m repro_torch.launch.dryrun)")
 
     common = (["--device", a.device] if a.device else [])
     reduced = ["--reduced"] if a.reduced else []
@@ -87,6 +96,10 @@ def main(argv=None) -> dict:
         "kernels": ("kernel bench (name,us_per_call,derived)",
                     "kernel_bench",
                     ["--reps", str(a.reps)] + reduced + doc("kernels")),
+        "roofline": ("roofline (H100 data-sheet projection of the dry-run)",
+                     "roofline", ["--in", str(a.dryrun)]),
+        "scaling": ("weak scaling, 1 pod vs 2 (H100 projection)", "scaling",
+                    ["--in", str(a.dryrun)]),
     }
     if a.json:
         os.makedirs(a.out, exist_ok=True)
@@ -94,9 +107,15 @@ def main(argv=None) -> dict:
     for section, (title, module, argv_) in plan.items():
         if a.section not in ("all", section):
             continue
+        if section in DRYRUN_SECTIONS:
+            if not a.dryrun:            # "all" without a dry-run JSONL
+                continue
+            extra = []                  # the host reads a file: no device
+        else:
+            extra = common
         print(f"== {title} ==", flush=True)
         mod = importlib.import_module(f"repro_torch.launch.{module}")
-        results[section] = mod.main(argv_ + common)
+        results[section] = mod.main(argv_ + extra)
         print()
     return results
 

@@ -10,8 +10,11 @@ with a cache, ``<kind>_decode`` (one token against the cache) and
 ``<kind>_cache_template``.  Decode writes the cache IN PLACE and returns
 it.  Blocks route their hot loops through
 :func:`repro_torch.core.regions.dispatch`, so the planner can swap
-implementations.  The JAX sharding constraints have no counterpart on one
-card.
+implementations.  Attention carries JAX's sharding constraints
+(``parallel.ctx.constrain``: heads over the model axis, or the query
+sequence where the heads do not divide it); they are the identity on one
+device.  Buffers a block fills in place are made with ``new_empty`` /
+``new_zeros`` from an input, so under a mesh they are DTensors too.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.models import moe as _moe  # noqa: F401 (registers moe_*)
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SS
 from repro_torch.models.params import spec
+from repro_torch.parallel import ctx as PC
+from repro_torch.parallel.ctx import constrain, heads_shardable
 
 # ---------------------------------------------------------------------------
 # attn_core / mlp_core / mlp_gelu / conv_stem region variants
@@ -80,7 +85,7 @@ def _conv_stem_ref(x, w, b, *, stride=1):
     # x: [B, W, Cin]; w: [K, Cin, Cout] (HIO, whisper's k=3 conv1d stem
     # layer); a "SAME"-padded strided conv1d, then gelu(h + b)
     _, lo, hi = same_pad(x.shape[1], w.shape[0], stride)
-    xt = F.pad(x.transpose(1, 2), (lo, hi))                 # [B, Cin, W']
+    xt = PC.pad(x.transpose(1, 2), (lo, hi))                # [B, Cin, W']
     h = F.conv1d(xt, w.permute(2, 1, 0), stride=stride)     # [B, Cout, out_w]
     # back to a contiguous [B, out_w, Cout], the layout the offload form
     # returns (the encoder's matmuls then fold their rows into one mm)
@@ -94,7 +99,7 @@ def _conv_stem_offload(x, w, b, *, stride=1):
     # dense GEMM)
     k, cin, cout = w.shape
     out_w, lo, hi = same_pad(x.shape[1], k, stride)
-    xp = F.pad(x, (0, 0, lo, hi))
+    xp = PC.pad(x, (0, 0, lo, hi))
     span = (out_w - 1) * stride + 1
     cols = torch.cat([xp[:, i:i + span:stride] for i in range(k)],
                      dim=-1)                                # [B, out_w, K*Cin]
@@ -156,9 +161,21 @@ def attn_apply(p, x, *, cfg: ModelConfig, positions, impl=None, causal=True,
     kpos = positions if kv_positions is None else kv_positions
     q = L.apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = L.apply_rope(k, kpos[:, None, :], cfg.rope_theta)
+    # Query heads shard over 'model' when divisible; otherwise fall back to
+    # sequence-parallel queries (40, 56 or 12 heads on a 16-way axis would
+    # otherwise replicate the S^2 work on every model shard).  K/V shard on
+    # kv_heads only when divisible; a replicated K/V is the GQA trade.
+    q_axes = (("batch", "heads", None, None) if heads_shardable(cfg.num_heads)
+              else ("batch", None, "act_seq", None))
+    kv_axes = (("batch", "kv_heads", None, None)
+               if heads_shardable(cfg.num_kv_heads)
+               else ("batch", None, None, None))
     # the kernels take contiguous [B, H, S, hd] tensors
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q = constrain(q, q_axes).contiguous()
+    k = constrain(k, kv_axes).contiguous()
+    v = constrain(v, kv_axes).contiguous()
     out = dispatch("attn_core", impl, q, k, v, causal=causal, window=window)
+    out = constrain(out, q_axes)
     out = _merge_heads(out) @ p["wo"]
     res = x + out.to(x.dtype)
     if return_kv:
@@ -245,18 +262,19 @@ def attn_prefill_cache(k, v, *, positions, window=0, ctx=None,
         # keep the last `size` positions at slots pos % size
         keep_pos = positions[:, -size:]                        # [B, size]
         slots = keep_pos % size
-        kc = torch.zeros((b, hkv, size, hd), dtype=k.dtype, device=dev)
-        vc = torch.zeros((b, hkv, size, hd), dtype=v.dtype, device=dev)
-        sp = torch.full((b, size), -1, dtype=torch.int32, device=dev)
+        # new_*: a DTensor's buffers under a mesh
+        kc = k.new_zeros((b, hkv, size, hd))
+        vc = v.new_zeros((b, hkv, size, hd))
+        sp = k.new_full((b, size), -1, dtype=torch.int32)
         bi = torch.arange(b, device=dev)[:, None]
         kc[bi, :, slots] = k[:, :, -size:].transpose(1, 2)
         vc[bi, :, slots] = v[:, :, -size:].transpose(1, 2)
         sp[bi, slots] = keep_pos.to(torch.int32)
         return {"k": kc, "v": vc, "slot_pos": sp}
     pad = size - s
-    kc = F.pad(k, (0, 0, 0, pad))
-    vc = F.pad(v, (0, 0, 0, pad))
-    sp = F.pad(positions, (0, pad), value=-1)
+    kc = PC.pad(k, (0, 0, 0, pad))
+    vc = PC.pad(v, (0, 0, 0, pad))
+    sp = PC.pad(positions, (0, pad), value=-1)
     return {"k": kc, "v": vc, "slot_pos": sp.to(torch.int32)}
 
 

@@ -1,6 +1,7 @@
 """Model factory: per-arch entry points used by the tests, the planner's
 LM program and the serving engine — the port of the JAX package's
-``models/factory.py`` (no dry-run specs).
+``models/factory.py``, the dry-run's abstract inputs included (meta
+tensors: shapes and types, no storage).
 
 The frontend archs take a second input beside the tokens, under the JAX
 batch's key: paligemma-3b's ``patches`` (stubbed SigLIP patch embeddings,
@@ -16,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.regions import Impl
 from repro_torch.models import lm
@@ -60,6 +61,48 @@ def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None):
     ``cuda``)."""
     return P.init(lm.cache_template(cfg, batch, ctx),
                   torch.Generator(device=resolve_device(device)))
+
+
+def _meta(template):
+    return P.tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                            device="meta"), template)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as meta tensors."""
+    return _meta(template(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, ctx: int):
+    """The cache tree as meta tensors."""
+    return _meta(lm.cache_template(cfg, batch, ctx))
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry-run stand-ins: meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+def meta_tensor(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    spec = {"tokens": meta_tensor((b, s), torch.int32)}
+    key = frontend_key(cfg)
+    if key is not None:
+        spec[key] = meta_tensor((b, cfg.frontend_seq, cfg.frontend_dim),
+                                 torch.bfloat16)
+    return spec
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Inputs for the step function of this cell (excluding params/opt/cache,
+    which have their own abstract builders)."""
+    if shape.kind in ("train", "prefill"):
+        return {"batch": batch_spec(cfg, shape)}
+    b = shape.global_batch          # decode: one new token a sequence
+    return {"tokens": meta_tensor((b, 1), torch.int32),
+            "pos": meta_tensor((b,), torch.int32)}
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.loops import fori_loop
+from repro_torch.parallel import ctx as PC
 
 NEG_INF = -1e30
 
@@ -75,9 +76,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_chunk = min(k_chunk, sk)
     sq_p = -(-sq // q_chunk) * q_chunk
     sk_p = -(-sk // k_chunk) * k_chunk
-    qp = F.pad(q, (0, 0, 0, sq_p - sq))
-    kp = F.pad(k, (0, 0, 0, sk_p - sk))
-    vp = F.pad(v, (0, 0, 0, sk_p - sk))
+    qp = PC.pad(q, (0, 0, 0, sq_p - sq))
+    kp = PC.pad(k, (0, 0, 0, sk_p - sk))
+    vp = PC.pad(v, (0, 0, 0, sk_p - sk))
     nq, nk = sq_p // q_chunk, sk_p // k_chunk
     qp = qp.reshape(b, hkv, g, nq, q_chunk, d)
     kp = kp.reshape(b, hkv, nk, k_chunk, d)
@@ -214,11 +215,61 @@ def cache_update(k_cache, v_cache, slot_pos, k_new, v_new, pos,
 
     k_cache/v_cache: [B, Hkv, S, D]; k_new/v_new: [B, Hkv, 1, D]; pos: [B].
     Unlike the JAX function this writes IN PLACE (the caches are large and
-    the caller owns them) and returns the same three tensors."""
+    the caller owns them) and returns the same three tensors.  DTensor
+    caches (under a mesh) are written block by block
+    (:func:`_cache_update_local`)."""
+    if hasattr(k_cache, "device_mesh"):
+        return _cache_update_local(k_cache, v_cache, slot_pos, k_new, v_new,
+                                   pos, window)
     s = k_cache.shape[2]
     slot = (pos % s if window > 0 else pos.clamp_max(s - 1)).long()  # [B]
     bi = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache[bi, :, slot] = k_new[:, :, 0].to(k_cache.dtype)
     v_cache[bi, :, slot] = v_new[:, :, 0].to(v_cache.dtype)
     slot_pos[bi, slot] = pos.to(slot_pos.dtype)
+    return k_cache, v_cache, slot_pos
+
+
+def _cache_update_local(k_cache, v_cache, slot_pos, k_new, v_new, pos,
+                        window: int):
+    """:func:`cache_update` of DTensor caches ([B, Hkv, S, D] sharded on
+    batch and on kv heads or ctx, by the rules): the new token's k/v and
+    the positions are laid out as the cache's batch and head blocks, and
+    each rank writes the rows of its block whose slot falls in its ctx
+    range — no gather of the cache."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel.ctx import block_offsets, local_region
+
+    mesh, pl = k_cache.device_mesh, tuple(k_cache.placements)
+    tok_pl = [Replicate() if p.is_shard() and p.dim == 2 else p for p in pl]
+    row_pl = [p if p.is_shard() and p.dim == 0 else Replicate() for p in pl]
+    kn = k_new.redistribute(mesh, tok_pl).to_local()
+    vn = v_new.redistribute(mesh, tok_pl).to_local()
+    pn = pos.redistribute(mesh, row_pl).to_local() if hasattr(
+        pos, "device_mesh") else pos
+    s = k_cache.shape[2]
+    with local_region():
+        slot = (pn % s if window > 0 else pn.clamp_max(s - 1)).long()
+        bi = torch.arange(slot.shape[0], device=slot.device)
+
+        def write(cache, ctx_dim, value):
+            """Write ``value`` [B_loc, ...] at each row's slot of this
+            rank's block of ``cache`` where the slot is in its range."""
+            off, size = block_offsets(cache)
+            s0, n = off[ctx_dim], size[ctx_dim]
+            mine = (slot >= s0) & (slot < s0 + n)
+            ls = (slot - s0).clamp(0, n - 1)
+            local = cache.to_local()
+            if ctx_dim == 2:
+                old = local[bi, :, ls]
+                local[bi, :, ls] = torch.where(mine[:, None, None],
+                                               value.to(local.dtype), old)
+            else:
+                local[bi, ls] = torch.where(mine, value.to(local.dtype),
+                                            local[bi, ls])
+
+        write(k_cache, 2, kn[:, :, 0])
+        write(v_cache, 2, vn[:, :, 0])
+        write(slot_pos, 1, pn)
     return k_cache, v_cache, slot_pos

@@ -47,6 +47,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.params import DTYPES, spec, stack_tree, tree_map
 from repro_torch.optim import quantize as Q
+from repro_torch.parallel import ctx as PC
+from repro_torch.parallel.ctx import constrain, gather_fsdp
 
 
 def _check_kind(kind: str) -> None:
@@ -167,8 +169,10 @@ def cache_template(cfg: ModelConfig, batch: int, ctx: int) -> dict:
 
 
 def _empty(template, device) -> dict:
-    return tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
-                                          device=device), template)
+    """Uninitialized cache leaves (under a mesh, each laid out by the
+    rules, every rank allocating its block)."""
+    return tree_map(lambda s: PC.empty(s.shape, DTYPES[s.dtype], s.axes,
+                                       "cache", device), template)
 
 
 def _layer(tree, i: int, dtype=None):
@@ -182,6 +186,18 @@ def _layer(tree, i: int, dtype=None):
     if isinstance(tree, dict):
         return {k: _layer(v, i, dtype) for k, v in tree.items()}
     return tree[i]
+
+
+def _weights(tree):
+    """A weight tree as its layers use it: under a mesh with FSDP, each
+    leaf's shards over the data axes gathered (ZeRO-3; the identity on
+    one device)."""
+    return tree_map(gather_fsdp, tree)
+
+
+def _wlayer(tree, i: int, dtype):
+    """:func:`_layer` of a stacked weight tree, gathered as :func:`_weights`."""
+    return _weights(_layer(tree, i, dtype))
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -301,26 +317,29 @@ def encode(params, frames, *, cfg: ModelConfig, impl=None):
     the device."""
     dt = DTYPES[cfg.dtype]
     if "stem" in params:
-        st = params["stem"]
+        # DTensor's convolution takes whole weights: an FSDP-sharded stem
+        # is gathered here (the identity on one device)
+        st = {k: constrain(w, (None,) * w.dim())
+              for k, w in params["stem"].items()}
         x = frames.to(st["w1"].dtype)         # the conv takes one type
         x = dispatch("conv_stem", impl, x, st["w1"], st["b1"], stride=1)
         x = dispatch("conv_stem", impl, x.to(st["w2"].dtype), st["w2"],
                      st["b2"], stride=2)
         x = x.to(dt)
     else:
-        w = params["w_front"]
+        w = gather_fsdp(params["w_front"])
         x = (frames.to(w.dtype) @ w).to(dt)
     positions = _positions(x)
     enc = params["encoder"]
 
     def body(i, x):
-        p = _layer(enc["stack"], i, dt)
+        p = _wlayer(enc["stack"], i, dt)
         x = B.attn_apply(p["attn"], x, cfg=cfg, positions=positions,
                          impl=impl, causal=False)
         return B.mlp_apply(p["ffn"], x, cfg=cfg, impl=impl)
 
     x = fori_loop(0, cfg.encoder_layers, body, x)
-    return L.rms_norm(x, enc["ln"], cfg.norm_eps)
+    return L.rms_norm(x, gather_fsdp(enc["ln"]), cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +347,7 @@ def encode(params, frames, *, cfg: ModelConfig, impl=None):
 # ---------------------------------------------------------------------------
 def _embed(params, cfg: ModelConfig, tokens):
     # bf16 table row times a Python float stays bf16, as in JAX
-    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    x = L.embed(tokens, gather_fsdp(params["embed"])) * math.sqrt(cfg.d_model)
     return x.to(DTYPES[cfg.dtype])
 
 
@@ -339,7 +358,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_emb):
     x = _embed(params, cfg, tokens)
     if cfg.frontend != "siglip_stub" or frontend_emb is None:
         return x, 0
-    w = params["w_front"]
+    w = gather_fsdp(params["w_front"])
     fe = (frontend_emb.to(w.dtype) @ w).to(x.dtype)
     return torch.cat([fe, x], dim=1), fe.shape[1]
 
@@ -363,9 +382,13 @@ def _positions(x) -> torch.Tensor:
 
 
 def _logits(params, x, cfg: ModelConfig):
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(x, table, cfg.tie_embeddings)
+    x = L.rms_norm(x, gather_fsdp(params["final_ln"]), cfg.norm_eps)
+    table = gather_fsdp(params["embed"] if cfg.tie_embeddings
+                        else params["unembed"])
+    # batch -> data, vocab -> model: a product over an FSDP-sharded embed
+    # dim is a partial sum until here
+    return constrain(L.unembed(x, table, cfg.tie_embeddings),
+                     ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +412,17 @@ def _checkpointed(body, i: int, x, *, dots: bool):
     its no-batch-dim products (``dots=True``)."""
     kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
                                           _dots_policy)} if dots else {}
-    return checkpoint(body, i, x, use_reentrant=False, **kw)
+    return checkpoint(_under_mesh(body), i, x, use_reentrant=False, **kw)
+
+
+def _under_mesh(body):
+    """``body`` with the mesh's gather fallback back on when the backward
+    rematerializes it (``parallel.ctx.reentered``; nothing on one
+    device)."""
+    def run(i, x):
+        with PC.reentered():
+            return body(i, x)
+    return run
 
 
 def _closest_divisor(n: int, target: int) -> int:
@@ -442,13 +475,14 @@ def forward(params, tokens, *, cfg: ModelConfig, impl=None,
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
 
     def unit_body(i, x):
-        return _apply_unit_seq(_layer(params["stack"], i, dt), x, cfg=cfg,
+        return _apply_unit_seq(_wlayer(params["stack"], i, dt), x, cfg=cfg,
                                kinds=unit_kinds, positions=positions,
                                impl=impl, enc=enc)
 
     x = _run_stack(unit_body, reps, x, remat)
     if tail_kinds:
-        x = _apply_unit_seq(params["tail"], x, cfg=cfg, kinds=tail_kinds,
+        x = _apply_unit_seq(_weights(params["tail"]), x, cfg=cfg,
+                            kinds=tail_kinds,
                             positions=positions, impl=impl, enc=enc)
     return _logits(params, x[:, n_front:], cfg)
 
@@ -463,8 +497,11 @@ def loss_fn(params, batch, *, cfg: ModelConfig, impl=None,
                      remat=remat)
     labels = tokens[:, 1:].long()
     lg = logits[:, :-1].float()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    logz = constrain(torch.logsumexp(lg, dim=-1), ("batch", None))
+    # a vocab-sharded gather is a masked partial sum: reduce it before the
+    # index (constrain is the identity on one device)
+    gold = constrain(torch.gather(lg, -1, labels[..., None]),
+                     ("batch", None, None))[..., 0]
     return torch.mean(logz - gold)
 
 
@@ -502,14 +539,15 @@ def prefill(params, tokens, *, cfg: ModelConfig, impl=None,
 
     def unit_body(i, x):
         return _apply_unit_seq_exact(
-            _layer(params["stack"], i, dt), _layer(cache["stack"], i), x,
+            _wlayer(params["stack"], i, dt), _layer(cache["stack"], i), x,
             cfg=cfg,
             kinds=unit_kinds, positions=positions, impl=impl, enc=enc,
             ctx=ctx, length=valid)
 
     x = fori_loop(0, reps, unit_body, x)
     if tail_kinds:
-        x = _apply_unit_seq_exact(params["tail"], cache["tail"], x, cfg=cfg,
+        x = _apply_unit_seq_exact(_weights(params["tail"]), cache["tail"], x,
+                                  cfg=cfg,
                                   kinds=tail_kinds, positions=positions,
                                   impl=impl, enc=enc, ctx=ctx, length=valid)
     if valid is None:
@@ -529,12 +567,13 @@ def decode_step(params, cache, tokens, pos, *, cfg: ModelConfig, impl=None):
     unit_kinds, reps, tail_kinds = layer_plan(cfg)
 
     def unit_body(i, x):
-        return _apply_unit_decode(_layer(params["stack"], i, dt),
+        return _apply_unit_decode(_wlayer(params["stack"], i, dt),
                                   _layer(cache["stack"], i), x, cfg=cfg,
                                   kinds=unit_kinds, pos=pos, impl=impl)
 
     x = fori_loop(0, reps, unit_body, x)
     if tail_kinds:
-        x = _apply_unit_decode(params["tail"], cache["tail"], x, cfg=cfg,
+        x = _apply_unit_decode(_weights(params["tail"]), cache["tail"], x,
+                               cfg=cfg,
                                kinds=tail_kinds, pos=pos, impl=impl)
     return _logits(params, x, cfg), cache

@@ -34,9 +34,11 @@ layers captures into a CUDA graph.
 and picks, and can replay the picks of one run in another (the MoE
 prefill check of ``models/moe_check.py``).  It acts only inside ``with
 log.active():`` on the thread that entered it; elsewhere the routing runs
-exactly as without it and adds no operation to a captured graph.  The JAX code's sharding constraints
-(``repro.parallel.ctx.constrain``) are the identity on one device; they
-come back with the multi-device slice.  :func:`aux_load_balance_loss` is
+exactly as without it and adds no operation to a captured graph.  The
+expert-choice dispatch carries JAX's sharding constraints
+(``parallel.ctx.constrain``: groups over the data axes, experts over the
+model axis, a group-local combine); they are the identity on one device.
+:func:`aux_load_balance_loss` is
 the Switch-style auxiliary loss; as in the JAX package no loss function
 calls it.
 """
@@ -50,6 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.regions import dispatch, register_variant
+from repro_torch.parallel import ctx as PC
+from repro_torch.parallel.ctx import constrain
 
 
 def _router_logits(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
@@ -181,8 +185,7 @@ def moe_dispatch_slots(x, w_router, w_gate, w_up, w_down, *, num_experts: int,
     slot = torch.where(keep, gate_idx * c + pos_in_expert,
                        num_experts * c).reshape(t * k)        # dead row E*c
     src = x[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((num_experts * c + 1, d), dtype=x.dtype,
-                      device=x.device).index_add_(0, slot, src)
+    buf = x.new_zeros((num_experts * c + 1, d)).index_add_(0, slot, src)
     xe = buf[:-1].reshape(num_experts, c, d)                  # [E, C, D]
     ye = _expert_ffn(xe, w_gate, w_up, w_down)
     ye_pad = torch.cat([ye.reshape(num_experts * c, d),
@@ -221,9 +224,9 @@ def moe_expert_choice(x, params, *, num_experts: int, k: int,
         g -= 1
     tg = t // g
     e = num_experts
-    xg = x.reshape(g, tg, d)
+    xg = constrain(x.reshape(g, tg, d), ("batch", None, None))
     logits = _router_logits(xg, params["router"])
-    probs = torch.softmax(logits, dim=-1)
+    probs = constrain(torch.softmax(logits, dim=-1), ("batch", None, None))
     c = min(moe_capacity(tg, e, k, capacity_factor), tg)
     gate, idx = top_k(probs.transpose(1, 2), c)               # [G, E, C]
     log = getattr(_ACTIVE, "log", None)
@@ -231,17 +234,47 @@ def moe_expert_choice(x, params, *, num_experts: int, k: int,
         gate, idx = log.route(logits, probs, gate, idx)
     flat_idx = idx.reshape(g, e * c)
     xe = torch.gather(xg, 1, flat_idx[..., None].expand(g, e * c, d))
+    # G -> data, E -> model (EP)
+    xe = constrain(xe.reshape(g, e, c, d), ("batch", "experts", None, None))
     # the experts' products batched over E, G x C rows each
-    xe = xe.reshape(g, e, c, d).transpose(0, 1).reshape(e, g * c, d)
+    xe = xe.transpose(0, 1).reshape(e, g * c, d)
     ye = _expert_ffn(xe, params["w_gate"], params["w_up"], params["w_down"])
     ye = ye.reshape(e, g, c, d).transpose(0, 1)               # [G, E, C, D]
     ye = (ye * gate[..., None].to(ye.dtype)).to(x.dtype)
-    # combine in expert order: the tokens of one expert are distinct, so
-    # each scatter-add has no collisions
-    out = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
+    # under a mesh each group's experts are gathered to it (G -> data),
+    # and the combine stays group-local
+    ye = constrain(ye, ("batch", None, None, None))
+    idx = constrain(idx, ("batch", None, None))
+    if hasattr(ye, "device_mesh"):
+        return _combine_local(ye, idx, (g, tg, d)).reshape(t, d)
+    return _combine(ye, idx, x.new_zeros((g, tg, d)))
+
+
+def _combine(ye, idx, out):
+    """Add each expert's outputs ye [G, E, C, D] at its tokens idx
+    [G, E, C] into out [G, Tg, D], in expert order: the tokens of one
+    expert are distinct, so each scatter-add has no collisions."""
+    g, e, c, d = ye.shape
     for j in range(e):
         out.scatter_add_(1, idx[:, j, :, None].expand(g, c, d), ye[:, j])
-    return out.reshape(t, d)
+    return out.reshape(-1, d)
+
+
+def _combine_local(ye, idx, shape):
+    """:func:`_combine` of DTensors laid out by groups (dim 0 over the data
+    axes, whole elsewhere): each rank combines its own groups, the blocks
+    making the [G, Tg, D] DTensor of the same layout (DTensor has no
+    sharded scatter-add)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, pl = ye.device_mesh, tuple(ye.placements)
+    yl = ye.to_local()
+    block = (yl.shape[0],) + tuple(shape[1:])
+    with PC.local_region():
+        out = _combine(yl, idx.to_local(), yl.new_zeros(block)).reshape(block)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=(shape[1] * shape[2], shape[2], 1))
 
 
 def aux_load_balance_loss(probs: torch.Tensor, gate_idx: torch.Tensor,

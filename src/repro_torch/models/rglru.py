@@ -40,7 +40,8 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     a = a.reshape(bsz, nc, chunk, d)
     b = b.reshape(bsz, nc, chunk, d)
     out_dtype = torch.promote_types(a.dtype, h0.dtype)
-    h_all = torch.empty((bsz, nc * chunk, d), dtype=out_dtype, device=a.device)
+    # new_empty: a DTensor's buffer under a mesh, torch.empty otherwise
+    h_all = a.new_empty((bsz, nc * chunk, d), dtype=out_dtype)
 
     def body(i, h):
         cum_a, cum_b = associative_scan(a[:, i], b[:, i])

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.loops import fori_loop
 from repro_torch.core.regions import dispatch, register_variant
+from repro_torch.parallel import ctx as PC
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +84,9 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
         ev_a, ev_b = _combine(odd_a, odd_b, a[:, 2::2], b[:, 2::2])
     ev_a = torch.cat([a[:, :1], ev_a], dim=1)
     ev_b = torch.cat([b[:, :1], ev_b], dim=1)
-    out_a = torch.empty((a.shape[0], n) + ev_a.shape[2:], dtype=ev_a.dtype,
-                        device=a.device)
-    out_b = torch.empty((a.shape[0], n) + ev_b.shape[2:], dtype=ev_b.dtype,
-                        device=a.device)
+    # new_empty: a DTensor's buffer under a mesh, torch.empty otherwise
+    out_a = ev_a.new_empty((a.shape[0], n) + ev_a.shape[2:])
+    out_b = ev_b.new_empty((a.shape[0], n) + ev_b.shape[2:])
     out_a[:, 0::2], out_a[:, 1::2] = ev_a, odd_a
     out_b[:, 0::2], out_b[:, 1::2] = ev_b, odd_b
     return out_a, out_b
@@ -96,8 +96,8 @@ def pad_time(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
     """Right-pad dim 1 of t by ``pad`` steps of ``value``."""
     if not pad:
         return t
-    spec = [0, 0] * (t.dim() - 2) + [0, pad]
-    return F.pad(t, spec, value=value)
+    spec = (0, 0) * (t.dim() - 2) + (0, pad)
+    return PC.pad(t, spec, value=value)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +118,7 @@ def ssm_scan_ref(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     a = a.reshape(b, nc, chunk, d, n)
     bx = bx.reshape(b, nc, chunk, d, n)
     c = c.reshape(b, nc, chunk, n)
-    y = torch.empty((b, nc * chunk, d), dtype=a.dtype, device=a.device)
+    y = a.new_empty((b, nc * chunk, d))
 
     def chunk_body(i, h):
         cum_a, cum_b = associative_scan(a[:, i], bx[:, i])     # [B,chunk,D,N]
@@ -146,7 +146,7 @@ def ssm_scan_seq_chunked(a, bx, c, h0, chunk: int = 256):
     bx=0); here the last chunk is short instead, with the same result."""
     b, s, d, n = a.shape
     chunk = min(chunk, s)
-    y = torch.empty((b, s, d), dtype=a.dtype, device=a.device)
+    y = a.new_empty((b, s, d))
 
     def chunk_body(i, h):
         def step(t, hh):

@@ -1,3 +1,5 @@
-"""Parallelism settings of the port (the one-device part of the JAX
-package's ``parallel/``): the config and the per-arch presets.  Sharding
-rules, meshes and ``DeviceMesh`` come with the multi-device slice."""
+"""Parallelism of the port (the twin of the JAX package's ``parallel/``):
+the config and the per-arch presets, the logical-axis sharding rules and
+their DTensor placements (``rules``), the ambient parallel context with
+its activation constraints (``ctx``), and GPipe stages over a mesh axis
+(``pipeline``).  Meshes are built in ``launch/mesh.py``."""

@@ -1,6 +1,8 @@
 """Step builders — the port of the JAX package's ``runtime/steps.py``:
-``train_step`` (with gradient-accumulation microbatching), and the prefill
-and serve steps as thin aliases of the factory's.
+``train_step`` (with gradient-accumulation microbatching), the prefill
+and serve steps as thin aliases of the factory's, and the dry-run's
+:func:`abstract_train_state`.  Under a ``parallel_context`` the state's
+leaves are DTensors and the step runs on them unchanged.
 
 The train state is ``{'params', 'opt', 'step'}``, as in JAX.  The step
 differentiates the loss with ``torch.autograd.grad`` over detached copies
@@ -59,7 +61,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelismConfig,
             return grad_fn(params, batch)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        g_sum = [torch.zeros_like(p, dtype=torch.float32)
                  for p in tree_leaves(params)]
         for j in range(k):
             mb = {key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[j]
@@ -103,3 +105,12 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return {"params": params, "opt": adamw.init_state(params, opt_cfg),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=generator.device)}
+
+
+def abstract_train_state(cfg: ModelConfig,
+                         opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """The train state as meta tensors (the dry-run's stand-in)."""
+    ap = F.abstract_params(cfg)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    return {"params": ap, "opt": adamw.abstract_state(ap, opt_cfg),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}

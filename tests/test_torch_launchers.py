@@ -191,8 +191,7 @@ def test_run_writes_documents_that_trend_reads(tmp_path, capsys):
 
 @pytest.mark.parametrize("section,when", [
     ("autotune", "next slice"), ("verification", "next slice"),
-    ("faults", "next slice"), ("roofline", "multi-device slice"),
-    ("scaling", "multi-device slice")])
+    ("faults", "next slice")])
 def test_run_refuses_the_sections_still_to_come(capsys, section, when):
     with pytest.raises(SystemExit) as exc:
         _main("run")(["--section", section] + CPU)

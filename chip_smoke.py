@@ -241,7 +241,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    qwen2-72b decode_32k on the 16x16 mesh and arctic-480b decode_32k on
    2x16x16, on fake devices on the host, one process each at once (a
    time limit each): status ok; per-device GB, flops, collective bytes,
-   the ops the context gathered and the wall time are printed.
+   the ops the context gathered and the wall time are printed; (d) beside
+   c, on the host with no card visible: ``launch.train`` on reduced
+   qwen2-72b for 5 steps under ``torch.distributed.run`` on a 2x2 mesh
+   of 4 gloo ranks, and the same steps on 1x1, each with a time limit:
+   the 2x2 step-0 and final losses within 2e-2 of the 1x1 ones (the CPU
+   tests' tolerance) and falling, which runs the embedding's backward on
+   a DTensor table under this machine's torch.
+21. timing twins — the slice-14 sections of ``launch.run``
+   (``verification``, ``autotune``, ``faults``), each with ``--json`` into
+   ``chiprun_out/``: the twins' hard assertions (the same measured
+   sequences and counts, the tuned space larger than the fixed, the hot
+   re-plan measuring nothing, the storm's quarantine and winner, one
+   rollback with no request dropped), the timing claims by rule P
+   (``launch/paired.py``); each row is printed with ``decided_by`` (and
+   ``paired_ratio`` where the paired re-time ran).  The faults section
+   serves full-width Mistral-NeMo-12B in bf16 on 2 slots;
+   ``fir_filter_bank`` and ``decode_attention`` must launch (the
+   autotune plans' ``hopper`` patterns).
 
 Phases 6, 8, 9, 14, 15 and 16 print the decode step's device time beside
 its weight-streaming bound: every weight the step reads and the whole
@@ -268,6 +285,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -418,6 +436,16 @@ MESH_SLOTS, MESH_PROMPT, MESH_DECODE_STEPS = 4, 2048, 8
 MESH_DRYRUN_CELLS = (("qwen2-72b", "decode_32k", "single"),
                      ("arctic-480b", "decode_32k", "multi"))
 MESH_CELL_S = 150
+# phase 20 d: reduced qwen2-72b trained by the launcher on a 2x2 mesh of
+# 4 gloo ranks on the host and on 1x1; the 2x2 losses within MESH_TOL of
+# the 1x1 losses (tests/test_torch_parallel.py's tolerance), and falling
+MESH22_TRAIN = ["--arch", "qwen2-72b", "--reduced", "--device", "cpu",
+                "--steps", "5", "--batch", "8", "--seq", "32"]
+MESH22_S = 240
+MESH_TOL = 2e-2
+# phase 21: the timing twins through launch.run on the card; the faults
+# section serves Mistral-NeMo-12B at full width (2 slots)
+TWIN_SECTIONS = ("verification", "autotune", "faults")
 
 
 _START = time.perf_counter()
@@ -3163,6 +3191,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 21. the timing twins (slice 14) -------------------------------
+    phase("21. timing twins")
+    t21 = time.perf_counter()
+    out21 = ROOT / "chiprun_out"
+    for counter in counters:
+        counter.launches = 0
+    for section in TWIN_SECTIONS:
+        t0 = time.perf_counter()
+        bench_run.main(["--section", section, "--json", "--out", str(out21)]
+                       + (["--arch", ARCH] if section == "faults" else []))
+        doc = json.loads((out21 / f"BENCH_{section}.json").read_text())
+        print(f"{section}: {time.perf_counter() - t0:.1f} s; backend "
+              f"{doc['backend']} [{card}]")
+        keep = ("patterns", "run_seconds", "compile_seconds")
+        for row in doc["rows"]:
+            print("  " + json.dumps({k: v for k, v in row.items()
+                                     if k not in keep}))
+        for extra in ("workers_determinism", "warm_cache"):
+            if extra in doc:
+                print(f"  {extra}: {json.dumps(doc[extra])}")
+    twin_launches = {c.__name__: c.launches for c in counters}
+    print(f"launches in phase 21: {twin_launches}; phase wall "
+          f"{time.perf_counter() - t21:.1f} s [{card}]")
+    for name in ("fir_filter_bank", "decode_attention"):
+        if not twin_launches[name]:
+            raise AssertionError(f"phase 21: {name} did not launch")
+        rows[name]["launches"] += twin_launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")
     print("kernels: " + ", ".join(f"{n} ported (cuda)" for n in names)
@@ -3180,32 +3238,49 @@ def main() -> int:
     return 0
 
 
-def _dryrun_cell(cell, out: Path, limit_s: float):
-    """Start one full-width dry-run cell in a process of its own, on the
-    host; :func:`_dryrun_wait` collects it."""
-    arch, shape, mesh = cell
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--mesh", mesh, "--out", str(out)]
+def _host_start(cmd: list, limit_s: float, **env):
+    """Start ``cmd`` on the host, with no card visible, in a session of its
+    own (so that it and every process it starts can be killed);
+    :func:`_host_wait` collects it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+               CUDA_VISIBLE_DEVICES="", **env)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
     return proc, t0, limit_s
 
 
-def _dryrun_wait(started, cell, out: Path):
-    """(record, wall seconds) of a cell :func:`_dryrun_cell` started, or
-    (None, wall) when it ran past its time limit (then killed)."""
+def _host_wait(started):
+    """(exit code, output, wall seconds) of a process :func:`_host_start`
+    started; the exit code is None when it ran past its time limit (its
+    session is then killed)."""
     proc, t0, limit_s = started
     try:
         log, _ = proc.communicate(timeout=max(limit_s - (
             time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        return None, time.perf_counter() - t0
-    wall = time.perf_counter() - t0
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        return None, log, time.perf_counter() - t0
+    return proc.returncode, log, time.perf_counter() - t0
+
+
+def _dryrun_cell(cell, out: Path, limit_s: float):
+    """Start one full-width dry-run cell in a process of its own, on the
+    host; :func:`_dryrun_wait` collects it."""
+    arch, shape, mesh = cell
+    return _host_start([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--mesh", mesh,
+                        "--out", str(out)], limit_s)
+
+
+def _dryrun_wait(started, cell, out: Path):
+    """(record, wall seconds) of a cell :func:`_dryrun_cell` started, or
+    (None, wall) when it ran past its time limit (then killed)."""
+    rc, log, wall = _host_wait(started)
+    if rc is None:
+        return None, wall
     recs = [json.loads(line) for line in out.read_text().splitlines()
             if line.strip()] if out.exists() else []
     rec = next((r for r in reversed(recs)
@@ -3364,26 +3439,68 @@ def mesh_phase(torch, dev, card, counters, lr_fn, pcfg, losses18, norms18,
     for f in files.values():
         if f.exists():
             f.unlink()
+    # d's trainings (host processes too) run beside c's cells
+    train_d = {mesh: _host_start(
+        ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+          f"--nproc-per-node={data * model}"] if data * model > 1
+         else [sys.executable]) + ["-m", "repro_torch.launch.train"]
+        + MESH22_TRAIN + ["--data-mesh", str(data), "--model-mesh",
+                          str(model)], MESH22_S, OMP_NUM_THREADS="1")
+        for mesh, (data, model) in (("2x2", (2, 2)), ("1x1", (1, 1)))}
     started = {cell: _dryrun_cell(cell, files[cell], MESH_CELL_S)
                for cell in MESH_DRYRUN_CELLS}
-    results = {cell: _dryrun_wait(started[cell], cell, files[cell])
-               for cell in MESH_DRYRUN_CELLS}
-    for cell, (rec, wall) in results.items():
-        if rec is None or rec["status"] != "ok":
-            raise AssertionError(f"dry-run {cell}: " + (
-                f"ran past {MESH_CELL_S} s" if rec is None
-                else rec.get("error", "")))
-        mem, hc = rec["memory"], rec["hlo_cost"]
-        print(f"c. dry-run {' '.join(cell)} on {rec['devices']} fake "
-              f"devices: {rec['status']}, {wall:.1f} s wall (step "
-              f"{rec['run_s']} s); per device "
-              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB "
-              f"(arguments {mem['argument_bytes'] / 1e9:.2f}, temp "
-              f"{mem['temp_bytes'] / 1e9:.2f}), {hc['flops']:.4e} flops, "
-              f"{hc['hbm_fused']:.4e} HBM bytes, collectives "
-              f"{rec['collectives']['total_bytes']:.4e} B "
-              f"{rec['collectives']['counts']}; pcfg {rec['pcfg']}; "
-              f"gathered {rec['gathered']}")
+    # every host process of c and d is stopped, whatever fails first
+    try:
+        results = {cell: _dryrun_wait(started[cell], cell, files[cell])
+                   for cell in MESH_DRYRUN_CELLS}
+        for cell, (rec, wall) in results.items():
+            if rec is None or rec["status"] != "ok":
+                raise AssertionError(f"dry-run {cell}: " + (
+                    f"ran past {MESH_CELL_S} s" if rec is None
+                    else rec.get("error", "")))
+            mem, hc = rec["memory"], rec["hlo_cost"]
+            print(f"c. dry-run {' '.join(cell)} on {rec['devices']} fake "
+                  f"devices: {rec['status']}, {wall:.1f} s wall (step "
+                  f"{rec['run_s']} s); per device "
+                  f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f}"
+                  " GB "
+                  f"(arguments {mem['argument_bytes'] / 1e9:.2f}, temp "
+                  f"{mem['temp_bytes'] / 1e9:.2f}), {hc['flops']:.4e} flops, "
+                  f"{hc['hbm_fused']:.4e} HBM bytes, collectives "
+                  f"{rec['collectives']['total_bytes']:.4e} B "
+                  f"{rec['collectives']['counts']}; pcfg {rec['pcfg']}; "
+                  f"gathered {rec['gathered']}")
+
+        # d. the 2x2 backward under this machine's torch: the train launcher
+        # on 4 gloo ranks of the host against its 1x1 run
+        losses_d = {}
+        for mesh, started_d in train_d.items():
+            rc, log, wall = _host_wait(started_d)
+            found = (re.search(r"step 0 loss (\S+) ", log),
+                     re.search(r"final loss (\S+) after (\d+) steps", log))
+            if rc != 0 or None in found:
+                raise AssertionError(
+                    f"d. train on {mesh}: " + (f"ran past {MESH22_S} s" if rc
+                                               is None else f"exit {rc}")
+                    + f"; output:\n{log[-6000:]}")
+            losses_d[mesh] = [float(m.group(1)) for m in found]
+            print(f"d. qwen2-72b (reduced) through launch.train on {mesh} "
+                  f"({wall:.1f} s on the host): step-0 and final losses "
+                  f"{losses_d[mesh]} after {found[1].group(2)} steps")
+        two, one = losses_d["2x2"], losses_d["1x1"]
+        err = max(abs(a - b) for a, b in zip(two, one))
+        print(f"d. 2x2 against 1x1: max |loss difference| {err:.2e} "
+              f"(tolerance {MESH_TOL} + {MESH_TOL} x |1x1|), torch "
+              f"{torch.__version__}")
+        if any(abs(a - b) > MESH_TOL + MESH_TOL * abs(b)
+               for a, b in zip(two, one)) or not two[1] < two[0]:
+            raise AssertionError(f"d. the 2x2 losses {two} against 1x1's "
+                                 f"{one}")
+    finally:
+        for proc, _, _ in (*started.values(), *train_d.values()):
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
 
 
 if __name__ == "__main__":

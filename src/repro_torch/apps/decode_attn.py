@@ -1,6 +1,6 @@
 """Single-region decode-attention program — the port of the program that
 the JAX package's ``benchmarks/autotune.py`` plans (``make_decode_program``;
-the autotune benchmark itself is not ported).
+``launch/autotune.py`` is the port's twin of that benchmark).
 
 One query step against a [B, Hkv, S, D] KV cache (GQA 8:2), every slot
 valid.  The ``ref`` variant is the dense masked-softmax oracle registered

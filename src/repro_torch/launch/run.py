@@ -6,17 +6,22 @@ or figure (the twin of ``benchmarks/run.py``).
   extraction    static extractor precision/recall against the annotated
                 archs + discover()-driven planning of unannotated programs
   strategies    staged vs genetic vs surrogate vs exhaustive at equal budget
+  autotune      tile-parameter autotuning: tuned vs fixed genome at equal d
+  verification  serial vs pipelined pattern verification (core/executor.py)
   replanning    online replanning: hot-swap pause, pre/post-swap throughput,
                 warm re-open measurement budget (serving/replan.py)
+  faults        fault tolerance: retry/quarantine cost under an injected
+                fault storm + mid-serve rollback tick pause (core/faults.py)
   kernels       the model regions' variants timed on the device + H100
                 roofline projection
   roofline      H100 roofline terms of each cell of a dry-run JSONL
                 (``launch/dryrun.py``; given with ``--dryrun``)
   scaling       single- vs multi-pod weak scaling of the same JSONL
 
-The JAX harness's ``autotune``, ``verification`` and ``faults`` sections
-come with the next slice of the port: asking for one of them exits
-non-zero and says so.  ``roofline`` and ``scaling`` read the JSONL given
+Every section of the JAX harness has its twin here.  ``autotune`` and
+``verification`` compare the timings of two plans under rule P
+(``launch/paired.py``); ``faults`` serves ``--arch`` (reduced, in float32,
+with ``--reduced``).  ``roofline`` and ``scaling`` read the JSONL given
 with ``--dryrun`` and run on the host only; ``all`` takes them when it
 is given.
 
@@ -25,7 +30,7 @@ into ``--out`` (default: the current directory), the documents
 ``launch/trend.py`` compares.
 
     PYTHONPATH=src python -m repro_torch.launch.run [--section NAME] \\
-        [--json] [--out DIR] [--device cpu --reduced]
+        [--json] [--out DIR] [--device cpu --reduced] [--arch NAME]
 """
 from __future__ import annotations
 
@@ -33,19 +38,16 @@ import argparse
 import importlib
 import os
 
-SECTIONS = ("all", "conditions", "extraction", "strategies", "replanning",
-            "fig4", "kernels", "roofline", "scaling")
+SECTIONS = ("all", "conditions", "extraction", "strategies", "autotune",
+            "verification", "replanning", "faults", "fig4", "kernels",
+            "roofline", "scaling")
 # the sections that read a dry-run JSONL (--dryrun) instead of a device
 DRYRUN_SECTIONS = ("roofline", "scaling")
-# the JAX harness's sections that the port does not have yet
-LATER = {"autotune": "the next slice of the port",
-         "verification": "the next slice of the port",
-         "faults": "the next slice of the port"}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--section", default="all", choices=SECTIONS + tuple(LATER))
+    ap.add_argument("--section", default="all", choices=SECTIONS)
     ap.add_argument("--json", action="store_true",
                     help="write BENCH_<section>.json into --out for the "
                          "sections that support it")
@@ -60,10 +62,10 @@ def main(argv=None) -> dict:
                     help="torch device (default cuda; raises without a card)")
     ap.add_argument("--dryrun", default=None,
                     help="roofline/scaling sections: the dry-run JSONL")
+    ap.add_argument("--arch", default=None,
+                    help="faults section: the served model (default its "
+                         "twin's, qwen2-72b)")
     a = ap.parse_args(argv)
-    if a.section in LATER:
-        ap.exit(2, f"run: the {a.section} section comes with "
-                   f"{LATER[a.section]}\n")
     if a.section in DRYRUN_SECTIONS and not a.dryrun:
         ap.error(f"the {a.section} section reads a dry-run JSONL: give it "
                  "with --dryrun (python -m repro_torch.launch.dryrun)")
@@ -89,8 +91,19 @@ def main(argv=None) -> dict:
                        "vs exhaustive)", "strategies",
                        ["--budget", str(a.budget), "--reps", str(a.reps)]
                        + reduced + doc("strategies")),
+        "autotune": ("kernel autotuning (tuned vs fixed tile genome)",
+                     "autotune",
+                     ["--budget", str(max(a.budget, 8)), "--reps",
+                      str(min(a.reps, 2))] + reduced + doc("autotune")),
+        "verification": ("pipelined pattern verification (serial vs "
+                         "concurrent compile steps)", "verification",
+                         ["--budget", str(max(a.budget, 8)), "--reps",
+                          str(a.reps)] + reduced + doc("verification")),
         "replanning": ("online replanning (hot-swap pause + warm re-open)",
                        "replanning", doc("replanning")),
+        "faults": ("fault tolerance (fault-storm retries + rollback pause)",
+                   "faults", (["--arch", a.arch] if a.arch else [])
+                   + reduced + doc("faults")),
         "fig4": ("paper Fig. 4 (automatic offload speedup)", "fig4_offload",
                  ["--reps", str(a.reps)]),
         "kernels": ("kernel bench (name,us_per_call,derived)",

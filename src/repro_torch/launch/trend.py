@@ -3,9 +3,10 @@
 of ``benchmarks/``).
 
 ``python -m repro_torch.launch.run --json`` writes one document per
-section it runs: conditions, extraction, strategies, replanning and
-kernels (fig4 prints its table only).  This tool compares the current documents against a
-rolling window of previous runs and prints per-section, per-row deltas:
+section it runs: conditions, extraction, strategies, autotune,
+verification, replanning, faults and kernels (fig4 prints its table
+only).  This tool compares the current documents against a rolling
+window of previous runs and prints per-section, per-row deltas:
 
     PYTHONPATH=src python -m repro_torch.launch.trend --baseline prev/ \
         [--current .]
@@ -17,7 +18,8 @@ inside each snapshot, so nested artifact folders need no flattening.
 
 Rows are matched by their identity columns (``SECTION_KEYS``: ``app`` for
 conditions and extraction, ``app`` + ``strategy`` for strategies, ``app``
-+ ``mode`` for replanning, ``name`` for kernels).  Gated metrics compare
++ ``workers`` + ``cached_replan`` for verification, ``app`` + ``mode`` for
+autotune, replanning and faults, ``name`` for kernels).  Gated metrics compare
 against the **median across the window**, so a single noisy sample can
 neither fail nor mask the gate:
 
@@ -26,8 +28,9 @@ neither fail nor mask the gate:
 
 A gated metric that regresses by more than ``--threshold`` (default 20%)
 against the window median fails the run with a non-zero exit.  Everything
-else (baseline_ms, n_measured, compile totals, accuracy counts, swap
-pauses, kernel times) is printed for the record but never gates.  With no baseline
+else (baseline_ms, n_measured, compile and verify walls, genome sizes,
+accuracy counts, swap pauses, fault counts, rollback pauses, kernel
+times) is printed for the record but never gates.  With no baseline
 documents the tool prints a notice and exits 0: the first run of a new
 section has nothing to compare.
 """
@@ -43,8 +46,11 @@ from statistics import median
 SECTION_KEYS = {
     "strategies": ("app", "strategy"),
     "conditions": ("app",),
+    "verification": ("app", "workers", "cached_replan"),
     "extraction": ("app",),
+    "autotune": ("app", "mode"),
     "replanning": ("app", "mode"),
+    "faults": ("app", "mode"),
     "kernels": ("name",),
 }
 # metric -> direction: +1 higher is better, -1 lower is better, 0 report-only
@@ -56,6 +62,11 @@ METRICS = {
     "n_reused": 0,
     "measured": 0,
     "compile_ms_total": 0,
+    "verify_wall_s": 0,
+    "compile_wall_s": 0,
+    # autotune section: genome-space accounting, recorded but never gating
+    "n_tile_patterns": 0,
+    "search_space": 0,
     # extraction section: accuracy counts and plan_speedup are recorded for
     # the trajectory but never gate (CPU-runner plan timings are too noisy)
     "tp": 0,
@@ -74,6 +85,17 @@ METRICS = {
     "n_measured_warm": 0,
     "n_reused_warm": 0,
     "plan_ms_warm": 0,
+    # faults section: fault-injection accounting and rollback pause,
+    # recorded for the trajectory but never gating (retry counts depend on
+    # the injected storm, tick timings on the host are noisy; the hard
+    # gates live in the benchmark itself)
+    "n_faults_injected": 0,
+    "n_retries": 0,
+    "n_quarantined": 0,
+    "plan_ms_storm": 0,
+    "storm_overhead_x": 0,
+    "rollbacks": 0,
+    "rollback_tick_ms": 0,
     # kernels section: per-variant times and launch counts, recorded but
     # never gating
     "us_per_call": 0,

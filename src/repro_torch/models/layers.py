@@ -164,7 +164,45 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    if PC._is_dtensor(table):
+        return _EmbedOnBlocks.apply(table, tokens.long())
     return table[tokens.long()]
+
+
+class _EmbedOnBlocks(torch.autograd.Function):
+    """``table[idx]`` on a DTensor table, whose backward adds the cotangent
+    rows into each rank's own block of the table, keeping its placements.
+    torch 2.11's DTensor fails the lookup's own backward (an ``index_put``
+    with an unnormalized ``Shard(dim=-1)``) on a 2-D mesh.  The forward is
+    the lookup as DTensor runs it."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table = (table.device_mesh, table.placements, table.shape,
+                     table.stride(), PC.block_offsets(table))
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        (idx,) = ctx.saved_tensors
+        mesh, placements, shape, stride, (off, size) = ctx.table
+        rows, g = PC.gather_local(idx), PC.gather_local(g)
+        if size[0] != shape[0]:                  # vocab rows sharded
+            # rows of other blocks add an exact zero to row 0: no
+            # data-dependent shape, so fake tensors (the dry-run) trace it
+            rows = rows - off[0]
+            keep = (rows >= 0) & (rows < size[0])
+            rows = torch.where(keep, rows, 0)
+            g = torch.where(keep[..., None], g, 0)
+        if size[1] != shape[1]:
+            g = g[..., off[1]:off[1] + size[1]]
+        # on a whole table, the call autograd makes for table[idx]
+        block = g.new_zeros(size).index_put_((rows,), g, accumulate=True)
+        return DTensor.from_local(block, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride), None
 
 
 class _Bf16Logits(torch.autograd.Function):

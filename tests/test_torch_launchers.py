@@ -189,17 +189,6 @@ def test_run_writes_documents_that_trend_reads(tmp_path, capsys):
     assert "no gated regressions" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("section,when", [
-    ("autotune", "next slice"), ("verification", "next slice"),
-    ("faults", "next slice")])
-def test_run_refuses_the_sections_still_to_come(capsys, section, when):
-    with pytest.raises(SystemExit) as exc:
-        _main("run")(["--section", section] + CPU)
-    assert exc.value.code != 0
-    assert f"the {section} section comes with the {when}" in \
-        capsys.readouterr().err
-
-
 @pytest.mark.parametrize("name,argv", [
     ("quickstart", []), ("offload_fir", []), ("offload_mriq", []),
     ("offload_transformer", []), ("serve_lm", ["--reduced"]),

@@ -2,7 +2,8 @@
 package: GPipe stages (``parallel/pipeline.py``) against the sequential
 stack and JAX's ``lax.scan`` reference (mirrors tests/test_pipeline.py),
 the joint pod x data layout, the Hopper entry points under a mesh (their
-plain versions on the CPU), the elastic restore of a JAX checkpoint onto
+plain versions on the CPU), the embedding's backward on a DTensor table
+(``layers.embed``'s own, for torch 2.11), the elastic restore of a JAX checkpoint onto
 a 2x2 mesh, ``shard_batch``, and reduced qwen2-72b trained on 2x2
 against 1x1 (mirrors test_multidevice_training_parity) and 1x1 against no
 mesh (tests/test_torch_mesh_families.py runs every family on 2x2).
@@ -81,6 +82,14 @@ def test_kernel_entry_points_gather_under_a_mesh(run, kernel):
     placements, err = _read(run, "kernels.json")[kernel]
     assert err == 0.0
     assert placements == ["R", "R"]
+
+
+@pytest.mark.parametrize("layout", ["R/S0", "S1/S0", "S0/S1", "R/R"])
+def test_embedding_backward_on_a_dtensor_table_keeps_its_blocks(run, layout):
+    res = _read(run, "embed.json")[layout]
+    assert res["forward_equal"]
+    assert res["grad_err"] < 1e-6
+    assert res["placements"] == res["table_placements"] == layout.split("/")
 
 
 def test_jax_checkpoint_restores_onto_a_2x2_mesh_bit_for_bit(run):

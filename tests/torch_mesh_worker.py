@@ -5,8 +5,9 @@ write).  One job a call, all of its checks in one spawn of 4 ranks:
     python tests/torch_mesh_worker.py JOB OUTDIR
 
 ``parallel``: GPipe stages, placements' block order, the kernel entry
-points under a mesh, elastic restore, shard_batch, and qwen2-72b
-(reduced) trained on 2x2, then on 1x1 and with no mesh by rank 0 alone.
+points under a mesh, the embedding's backward on a DTensor table, elastic
+restore, shard_batch, and qwen2-72b (reduced) trained on 2x2, then on 1x1
+and with no mesh by rank 0 alone.
 ``families``: every family's train and serve steps on 2x2.
 ``compression``: the int8 all-reduce.  Each rank's process group times out after PG_TIMEOUT_S.
 """
@@ -156,6 +157,41 @@ def _kernels(rank, out):
         _dump(out, "kernels.json", errs)
 
 
+def _embed(rank, out):
+    """``layers.embed``'s backward on a DTensor table over a 2x2 mesh, for
+    each layout the rules give the table: the table's gradient against
+    the plain lookup's, and its placements against the table's."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers as LY
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn(64, 16, generator=g)
+    tokens = torch.randint(0, 64, (4, 8), generator=g, dtype=torch.int32)
+    tokens[:, :3] = 7                          # repeated rows accumulate
+    w = torch.randn(4, 8, 16, generator=g)
+    ref = table.clone().requires_grad_(True)
+    (LY.embed(tokens, ref) * w).sum().backward()
+    dtok = distribute_tensor(tokens, mesh, [Shard(0), Replicate()])
+    dw = distribute_tensor(w, mesh, [Replicate(), Replicate()])
+    res = {}
+    for layout in ([Replicate(), Shard(0)], [Shard(1), Shard(0)],
+                   [Shard(0), Shard(1)], [Replicate(), Replicate()]):
+        dt = distribute_tensor(table.clone(), mesh, layout).requires_grad_()
+        y = LY.embed(dtok, dt)
+        (y * dw).sum().full_tensor().backward()
+        res["/".join(_pl(layout))] = {
+            "forward_equal": bool(torch.equal(y.full_tensor(),
+                                              table[tokens.long()])),
+            "grad_err": float((dt.grad.full_tensor() - ref.grad).abs().max()),
+            "placements": _pl(dt.grad.placements),
+            "table_placements": _pl(dt.placements)}
+    if rank == 0:
+        _dump(out, "embed.json", res)
+
+
 def _restore_and_batch(rank, out):
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -286,6 +322,7 @@ def _parallel(rank, port, out):
     _timed("pipeline", _pipeline, rank, out)
     _timed("placements", _placements, rank, out)
     _timed("kernels", _kernels, rank, out)
+    _timed("embed", _embed, rank, out)
     _timed("restore", _restore_and_batch, rank, out)
     from repro_torch.launch.mesh import make_host_mesh
     two = _qwen_losses(make_host_mesh(2, 2))

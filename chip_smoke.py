@@ -41,7 +41,20 @@ Phases, each printed as it runs; any failure exits non-zero:
 4. planner — the main path: the five-step planner on tdFIR (HPEC set 1)
    and MRI-Q (sampled at its bench size, analysed at Parboil "large"),
    strategy staged, d=4, against a temporary plan cache; a second plan is
-   served from the cache with zero measurements.
+   served from the cache with zero measurements.  Step 4 captures every
+   pattern, the all-ref baseline among them, into a CUDA graph and times
+   its replays (``core/search.py``); each plan's summary says ``timed as
+   graph`` per pattern.  Then, per app: the all-ref baseline's replay
+   median beside one eager call of the same build (CUDA events after a
+   synchronize) and beside the median of the same plan timed eagerly (a
+   yardstick plan, ``search.graph_type`` set to None for it alone); the
+   all-ref build and the ``hopper`` pattern each captured and replayed
+   once, their outputs equal to an eager call bit for bit; and the plan's
+   peak memory, which must lie no more than the largest single pattern's
+   graph pool (the memory its capture reserves) above the eager plan's
+   peak: the graphs are released one measurement at a time.  These checks
+   (here and in phases 6 and 10) are not the main path: the launch
+   counters are put back to what they were before them.
 5. run     — the main path continued: the ``hopper`` patterns of both apps
    at the paper's full sizes, held against the all-offload builds (and
    tdFIR's timed warm, the median of 5 calls).  The
@@ -61,7 +74,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    eagerly) serves the mix once more.  Every request must finish with 16
    tokens, the three runs must give the same greedy streams, and each
    request's prefill logits under ``attn_core=hopper`` must agree with
-   ``attn_core=ref`` on the same params.  Each run prints TTFT, aggregate
+   ``attn_core=ref`` on the same params.  The plan's peak memory is held
+   as phase 4 holds it.  Each run prints TTFT, aggregate
    tok/s, captures, launches and peak memory; then one decode step with
    all 4 slots is timed as a graph replay and eagerly (host clock,
    synchronized, median of 20, in turns) and traced once each with
@@ -89,7 +103,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    random weights from a seeded generator on the card): its all-ref
    forward at a [1, 512] prompt is captured, recognized, legalized and
    stitched by ``discover()``, planned (staged, d=4, temporary plan cache;
-   a pattern with ``rmsnorm=hopper`` must be measured, and the re-plan
+   a pattern with ``rmsnorm=hopper`` must be measured, its peak memory is
+   held as phase 4 holds it, and the re-plan
    must be a cache hit), and run with ``rmsnorm=hopper`` over the selected
    pattern; its logits are held against the captured program's, and
    ``rmsnorm`` must have launched (81 times per forward).
@@ -101,8 +116,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    compile; ``REPRO_TORCH_BUILD_DIR`` names the directory; one timed rep a
    pattern).  The workers=4 plan runs every pattern on the card as well,
    but is told the workers=1 plan's medians for the patterns both measure:
-   the apps' loop-faithful refs are host-bound and vary 10-40% between
-   runs, so two independent searches can part at a near-tie, and the
+   one timed replay of the apps' loop-faithful refs varies by up to ~25%
+   between runs, so two independent searches can part at a near-tie
+   (MRI-Q's ``mriq_phimag=offload`` saves ~5% of its all-ref), and the
    executor's contract is the same sequence for the same measurements.  So
    the same-sequence check shows that the pipelined executor does not
    change what the strategy sees; what the card shows is that the
@@ -268,9 +284,16 @@ projection, stem and encoder run at prefill only; an MoE step reads every
 expert).
 
 Every launch counter is set to 0 just before the path it belongs to runs
-and read just after it; the comparisons of phase 3 do not count.  A graph
-replay adds to each counter the launches its capture recorded
-(``serving/graphs.py``), so the counts stay kernel executions.
+and read just after it; the comparisons of phase 3 and the memory checks
+of phases 4, 6 and 10 do not count.  A graph
+replay, of a serving step or of a pattern Step 4 measures, adds to each
+counter the launches its capture recorded (``core/cuda_graphs.py``), so
+the counts stay kernel executions.
+
+Every Step-4 measurement of phases 4-21 is recorded: before the contract
+lines each measured pattern must have been timed as graph replays (the
+yardstick plans of phases 4, 6 and 10 aside), and no measurement may have
+failed its capture.
 
 The card's name and power limit come two lines before the last, the JSON
 object listing every ported kernel on the line before the last, and the
@@ -728,6 +751,18 @@ def held(fn, args, tensors):
     return launch
 
 
+def plan_peak(torch, dev, plan):
+    """``plan()``'s result, the peak of the device memory allocated above
+    the start while it ran, and what it left allocated above the start."""
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = plan()
+    torch.cuda.synchronize(dev)
+    return (out, torch.cuda.max_memory_allocated(dev) - start,
+            torch.cuda.memory_allocated(dev) - start)
+
+
 def flash_instance(name: str) -> str:
     """'D x block_q x block_k' of a mangled flash_wgmma_kernel name."""
     m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
@@ -764,7 +799,8 @@ def main() -> int:
     from repro_torch.kernels import ssm_scan as SS
     from repro_torch.kernels.ref import rmsnorm_plain
     from repro_torch.core.extract import discover
-    from repro_torch.launch import loop_extraction
+    from repro_torch.launch import loop_extraction, paired
+    from torch.utils._pytree import tree_leaves as pt_leaves
     from repro_torch.models import factory as F
     from repro_torch.models import layers as L
     from repro_torch.models import lm
@@ -1584,23 +1620,116 @@ def main() -> int:
         del x, w, got, want
     torch.cuda.empty_cache()
 
+    # every Step-4 measurement from here on, with whether a yardstick plan
+    # (timed eagerly on purpose) took it; read before the contract lines
+    yardstick = [False]
+    measured: list = []
+    graph_time_callable = search_mod.time_callable
+
+    def recorded_time_callable(*args, **kwargs):
+        m = graph_time_callable(*args, **kwargs)
+        measured.append((m, yardstick[0]))
+        return m
+
+    search_mod.time_callable = recorded_time_callable
+
+    def plan_memory(prog, cfg_p, report, peak, left, hold=()) -> None:
+        """Phases 4, 6 and 10: the plan ``report`` (peak ``peak`` bytes
+        above its start, ``left`` still allocated after it) against the
+        same plan timed eagerly, a yardstick plan, plus the largest graph
+        pool of a pattern it measured; and each pattern of ``hold``
+        captured, replayed and held bit for bit against an eager call,
+        whose time is printed beside the replay medians.  These are
+        checks, not the main path: the launch counters are put back as
+        they were before them."""
+        saved = [c.launches for c in counters]
+        try:
+            check_plan_memory(prog, cfg_p, report, peak, left, hold)
+        finally:
+            for counter, n in zip(counters, saved):
+                counter.launches = n
+
+    def check_plan_memory(prog, cfg_p, report, peak, left, hold) -> None:
+        graph_type = search_mod.graph_type
+        yardstick[0] = True
+        search_mod.graph_type = lambda device: None
+        try:
+            eager, peak_e, _ = plan_peak(
+                torch, dev, lambda: AutoOffloader(cfg_p).plan(prog))
+        finally:
+            search_mod.graph_type = graph_type
+            yardstick[0] = False
+        if any(m.timed_as != "eager" for m in
+               [eager.baseline] + list(eager.measurements)):
+            raise AssertionError(f"{prog.name}: the yardstick plan replayed")
+        sample = prog.sample_inputs(0, dev)
+        hold = {Impl(h).describe(): Impl(h) for h in hold}
+        impls = {m.pattern: Impl(m.mapping()) for m in
+                 [report.baseline] + list(report.measurements) if m.ok}
+        impls.update({k: v for k, v in hold.items() if k not in impls})
+        pools = {}
+        for name, impl in impls.items():
+            fn = prog.build(impl)
+            want = [t.clone() for t in pt_leaves(fn(*sample))]
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved(dev)
+            graph = search_mod.capture_pattern(fn, sample)
+            try:
+                torch.cuda.synchronize()
+                pools[name] = torch.cuda.memory_reserved(dev) - r0
+                if name not in hold:
+                    continue
+                if not search_mod.replay_bit_equal(graph, want, sample):
+                    raise AssertionError(f"{prog.name} [{name}]: the replay "
+                                         "differs from an eager call")
+                eager_s = paired.call_seconds(lambda: fn(*sample), dev)
+                line = (f"{prog.name} [{name}]: replay bit-equal to an eager "
+                        f"call; one eager call {eager_s * 1e3:.3f} ms")
+                mine = {m.pattern: m for m in
+                        [report.baseline] + list(report.measurements)}
+                theirs = {m.pattern: m for m in
+                          [eager.baseline] + list(eager.measurements)}
+                if name in mine and mine[name].ok:
+                    line += (f", the plan's replay median "
+                             f"{mine[name].run_seconds * 1e3:.3f} ms")
+                if name in theirs and theirs[name].ok:
+                    line += (f", the yardstick plan's eager median "
+                             f"{theirs[name].run_seconds * 1e3:.3f} ms")
+                print(line + f" [{card}]")
+            finally:
+                graph.release()
+                del want
+        biggest = max(pools.values())
+        print(f"{prog.name}: plan peak {peak / 2**20:.1f} MiB above its start "
+              f"({left / 2**20:.1f} MiB left after it); the yardstick plan "
+              f"{peak_e / 2**20:.1f} MiB; graph pools (MiB) " + ", ".join(
+                  f"{k} {v / 2**20:.1f}" for k, v in pools.items()))
+        if peak > peak_e + biggest:
+            raise AssertionError(
+                f"{prog.name}: the plan's peak {peak} B exceeds the eager "
+                f"plan's {peak_e} B by more than one graph pool ({biggest} B)")
+
     # ---- 4. planner (main path; launch counters zeroed here) ------------
     phase("4. planner")
     for counter in counters:
         counter.launches = 0
     cfg = PlannerConfig(strategy="staged", max_measurements=4, reps=3)
+    hold4 = {"tdfir": ({}, {"fir_bank": "hopper"}),
+             "mriq": ({}, {"compute_q": "hopper"})}
     with tempfile.TemporaryDirectory() as tmp:
         cache = PlanCache(Path(tmp) / "plans.json")
         for prog in (tdfir_app.make_program(TDFIR_FULL, TDFIR_FULL, device=dev),
                      mriq_app.make_program(device=dev)):
             t0 = time.perf_counter()
-            report = AutoOffloader(cfg).plan(prog, cache=cache)
+            report, peak, left = plan_peak(
+                torch, dev, lambda: AutoOffloader(cfg).plan(prog, cache=cache))
             print(report.summary())
             print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
                   f"{len(report.measurements)} measurements")
             if not (report.baseline.ok and report.measurements
                     and len(report.measurements) <= cfg.max_measurements):
                 raise AssertionError(f"{prog.name}: unsound plan")
+            plan_memory(prog, cfg, report, peak, left, hold4[prog.name])
             again = AutoOffloader(cfg).plan(prog, cache=cache)
             if not again.from_cache or again.measurements:
                 raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
@@ -1674,7 +1803,8 @@ def main() -> int:
                    ncfg=None, lengths: tuple[int, ...] | None = None,
                    buckets: tuple[int, ...] | None = None,
                    ctx: int = SERVE_CTX, on_plan=None,
-                   with_model=None, check_prefill=None) -> dict:
+                   with_model=None, check_prefill=None,
+                   memory_check: bool = False) -> dict:
         """Plan ``make_lm_program(arch)`` (then a cache hit), draw the model
         (``ncfg``, by default the arch's full config) on the card, serve the
         request mix twice with the ``hopper`` regions over the planned
@@ -1687,7 +1817,8 @@ def main() -> int:
         ``SERVE_BUCKETS[mix]`` at ``SERVE_CTX``, or ``lengths`` in
         ``buckets`` at ``ctx``; a frontend arch's requests each carry their
         own synthetic patches or frames.  ``on_plan(report)`` checks the
-        plan; ``with_model(params, ncfg)`` runs before the model is freed.
+        plan; ``with_model(params, ncfg)`` runs before the model is freed;
+        ``memory_check`` holds the plan's peak memory as phase 4 does.
         Every launch counter is zeroed first; returns the counts of
         planning and the engine's two rounds."""
         for counter in counters:
@@ -1696,12 +1827,15 @@ def main() -> int:
             cache = PlanCache(Path(tmp) / "plans.json")
             prog = make_lm_program(arch, device=dev)
             t0 = time.perf_counter()
-            report = AutoOffloader(cfg).plan(prog, cache=cache)
+            report, peak, left = plan_peak(
+                torch, dev, lambda: AutoOffloader(cfg).plan(prog, cache=cache))
             print(report.summary())
             print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
                   f"{len(report.measurements)} measurements")
             if not (report.baseline.ok and report.measurements):
                 raise AssertionError(f"{prog.name}: unsound plan")
+            if memory_check:
+                plan_memory(prog, cfg, report, peak, left)
             if on_plan is not None:
                 on_plan(report)
             again = AutoOffloader(cfg).plan(prog, cache=cache)
@@ -1951,7 +2085,8 @@ def main() -> int:
 
     # ---- 6. serve full-width Mistral-NeMo-12B (slice-2 main path) -------
     phase("6. serve")
-    serve_launches = serve_arch(ARCH, ("attn_core",), SHORT_MIX)
+    serve_launches = serve_arch(ARCH, ("attn_core",), SHORT_MIX,
+                                memory_check=True)
     if serve_launches["flash_attention"] <= 0:
         raise AssertionError("flash_attention was not launched on the main "
                              "path")
@@ -2049,7 +2184,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cache = PlanCache(Path(tmp) / "plans.json")
         t0 = time.perf_counter()
-        report = AutoOffloader(cfg).plan(prog, cache=cache)
+        report, peak, left = plan_peak(
+            torch, dev, lambda: AutoOffloader(cfg).plan(prog, cache=cache))
         print(report.summary())
         print(f"planned {prog.name} in {time.perf_counter() - t0:.1f} s, "
               f"{len(report.measurements)} measurements")
@@ -2057,6 +2193,9 @@ def main() -> int:
                 m.ok and m.mapping().get("rmsnorm") == "hopper"
                 for m in report.measurements)):
             raise AssertionError("rmsnorm=hopper was not measured")
+        # the largest program the script plans at full width: one graph
+        # at a time holds here too
+        plan_memory(prog, cfg, report, peak, left)
         again = AutoOffloader(cfg).plan(prog, cache=cache)
         if not again.from_cache or again.measurements:
             raise AssertionError(f"{prog.name}: re-plan was not a cache hit")
@@ -2160,7 +2299,7 @@ def main() -> int:
 
     real_time_callable = search_mod.time_callable
     print("app,strategy,workers,measured,selected,median_ms,compile_s_total,"
-          "compile_wall_s,verify_wall_s,plan_wall_s,cache_hits")
+          "compile_wall_s,verify_wall_s,plan_wall_s,cache_hits,timed_as")
     for app, make in apps11.items():
         spent = {}
         for strat in ("staged", "genetic", "surrogate", "exhaustive"):
@@ -2188,7 +2327,9 @@ def main() -> int:
                       f"{rep.best_seconds * 1e3:.3f},"
                       f"{ex['compile_seconds_total']:.3f},"
                       f"{ex['compile_wall_s']:.3f},{ex['verify_wall_s']:.3f},"
-                      f"{wall:.2f},{ex['compile_cache_hits']}")
+                      f"{wall:.2f},{ex['compile_cache_hits']},"
+                      + "/".join(sorted({m.timed_as for m in
+                                         [rep.baseline] + rep.measurements})))
             (one, _), (four, told) = runs[1], runs[4]
             ratios = [got / was for _, got, was in told]
             print(f"# {app}/{strat}: workers=4 timed (and was told the "
@@ -3220,6 +3361,23 @@ def main() -> int:
         rows[name]["launches"] += twin_launches[name]
     gc.collect()
     torch.cuda.empty_cache()
+
+    # Step 4 on the card: every measured pattern timed as graph replays
+    search_mod.time_callable = graph_time_callable
+    kinds: dict = {}
+    for m, yard in measured:
+        kind = ("failed" if not m.ok else
+                f"timed as {m.timed_as}" + (" (yardstick)" if yard else ""))
+        kinds[kind] = kinds.get(kind, 0) + 1
+    print(f"Step 4 measured {len(measured)} patterns in phases 4-21: "
+          + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items())))
+    eager_main = sorted({m.pattern for m, yard in measured
+                         if m.ok and not yard and m.timed_as != "graph"})
+    not_captured = [(m.pattern, m.error) for m, _ in measured
+                    if m.error.startswith("GraphCapture")]
+    if eager_main or not_captured:
+        raise AssertionError(f"Step 4 timed {eager_main} eagerly on the "
+                             f"card; captures failed: {not_captured}")
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
              "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")

@@ -13,7 +13,11 @@ module is that parallelism for the port:
   the CUDA sources the pattern's ``hopper`` genes need, then
   ``program.build(impl)`` — host-only work) concurrently on a
   ``ThreadPoolExecutor`` (``nvcc`` runs in processes of its own), then
-  runs the first calls and timed reps **strictly serially** in batch order.
+  runs the first calls, the captures into CUDA graphs (on a card) and the
+  timed reps **strictly serially** in batch order, on this thread
+  (``search.time_callable``): a capture never overlaps another pattern's
+  reps, and each graph and its memory pool are released when its
+  measurement ends, so a plan holds at most one pattern's graph at a time.
   Wall-clock per batch drops from ``Σ(compile + measure)`` toward
   ``max(compile) + Σ(measure)`` while ``run_seconds`` stays clean — no
   pattern's reps ever share the device with another pattern's device work.
@@ -22,7 +26,8 @@ module is that parallelism for the port:
   run it dedupes the speculative compile-ahead against the batch compiles;
   across the plan runs of one :class:`~repro_torch.core.planner
   .AutoOffloader` a pattern already built for the same program and shapes
-  is never built again.
+  is never built again.  It keeps the host artifact (the built callable),
+  never a graph: a re-measured pattern is captured anew.
 * ``prefetch`` — speculative compile-ahead: a strategy may hint the
   patterns it is likely to propose next (the surrogate GA's predicted
   top-2k), and their compile steps run in the background while earlier
@@ -383,12 +388,15 @@ class VerificationExecutor:
             for job, art, wait_s in zip(jobs, arts, waits):
                 m = self._measure_job(job, warmup=warmup, reps=reps,
                                       precompiled=art)
-                m.compile_wall_s = wait_s + (
-                    m.compile_wall_s - art.compile_seconds
-                    if m.attempts > 1 else 0.0)
+                # what the timing thread compiled itself: the capture (on
+                # a card) and what failed tries burned, billed here as in
+                # serial mode
+                inline_s = m.compile_seconds - art.compile_seconds
+                m.compile_wall_s = wait_s + inline_s
                 with self._lock:
                     self.stats.compile_wall_s += m.compile_wall_s
                     self.stats.drained += int(m.drained)
+                    self.stats.compile_seconds_total += inline_s
                     # a warm CompileCache hit from a previous plan did no
                     # compile now: count its duration only when THIS run
                     # compiled it

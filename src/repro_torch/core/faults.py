@@ -25,10 +25,15 @@ injector at both seams of a measurement:
   on *every* call: ``hang``/``slow`` sleep on the host after the call's
   launches (a CUDA-event rep then spans the sleep), ``nan`` replaces the
   first floating tensor of the output with NaNs on its device (caught by
-  the finite check), and ``exception``/``flaky`` raise.
+  the finite check), and ``exception``/``flaky`` raise.  The built callable
+  carries the two halves apart, ``inner`` (the pattern) and ``seam`` (the
+  hook), so Step 4 captures ``inner`` into a CUDA graph and puts every
+  replay's outputs through ``seam`` on the host: a run-site fault fires per
+  replay as it fires per eager call (captured, it would fire once, at
+  capture).
 
-A served generation replays CUDA graphs, and a host hook runs at capture,
-never at replay.  Its fault seam is device work inside the graph instead:
+A served generation replays CUDA graphs of its own steps, which no host
+hook sees.  Its fault seam is device work inside the graph instead:
 :class:`DeviceNaN` registers a variant that runs a region's variant and
 then writes NaN over its output when a flag on the device is set.
 
@@ -181,7 +186,10 @@ def wrap_program(program, injector: FaultInjector):
     """A copy of ``program`` whose built patterns consult ``injector``.
 
     Compile-site faults fire in ``build(impl)``; run-site faults fire on
-    every call of the built pattern.  The pattern key handed to the
+    every call of the built pattern, and on every replay of a graph
+    captured from its ``inner`` half when the replay's outputs go through
+    its ``seam`` half (as ``search.time_callable`` does).  The pattern key
+    handed to the
     injector is the build ``Impl``'s :meth:`~repro_torch.core.regions
     .Impl.describe` rendering (``"all-ref"`` for the empty pattern), so
     specs can target one candidate by substring match.
@@ -195,9 +203,13 @@ def wrap_program(program, injector: FaultInjector):
         injector.fire("compile", key)
         fn = inner_build(impl)
 
-        def faulty(*args):
-            return _inject_run_faults(fn(*args), key, injector)
+        def seam(out):
+            return _inject_run_faults(out, key, injector)
 
+        def faulty(*args):
+            return seam(fn(*args))
+
+        faulty.inner, faulty.seam = fn, seam
         return faulty
 
     return dataclasses.replace(program, build=build)

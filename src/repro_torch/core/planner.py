@@ -23,9 +23,14 @@ extended to mixed offload destinations (Yamato, arXiv 2011.12431).
 Step 4 verifies through the ``VerificationExecutor`` (core/executor.py):
 each pattern's host-only compile step (the ``nvcc`` builds its ``hopper``
 genes need, then ``program.build``) may run concurrently on a worker pool,
-while every first call and timed rep runs serially on the program's device
-(``program.device``) under the ``FaultPolicy`` (timeouts, bounded retry,
-finite check, MAD rejection).  The surrogate strategy scores patterns with
+while every first call, capture and timed rep runs serially on the
+program's device (``program.device``) under the ``FaultPolicy`` (timeouts,
+bounded retry, finite check, MAD rejection).  On a card each pattern, the
+all-ref baseline among them, is captured once into a CUDA graph and its
+replays are timed (``core/search.py``), as the JAX package times one
+compiled executable; on the CPU its calls run eagerly.  A plan's summary
+says which after each pattern's first call (``timed as graph`` or
+``timed as eager``).  The surrogate strategy scores patterns with
 the roofline ``CostModel`` (core/cost_model.py), primed from the plan
 cache's persisted calibration.
 
@@ -269,12 +274,15 @@ class PlanReport:
                 f"eff={c.efficiency:10.1f}"
                 + (f" best_variant={c.best_variant}" if c.best_variant else ""))
         if self.baseline:
-            lines.append(f"baseline (all-ref): {self.baseline.run_seconds*1e3:.3f} ms"
-                         f"  (first call {self.baseline.first_run_seconds*1e3:.0f} ms)")
+            b = self.baseline
+            lines.append(f"baseline (all-ref): {b.run_seconds*1e3:.3f} ms"
+                         f"  (first call {b.first_run_seconds*1e3:.0f} ms"
+                         + (f", timed as {b.timed_as})" if b.ok else ")"))
         for m in self.measurements:
             lines.append(f"  pattern[{m.pattern}]: {m.run_seconds*1e3:.3f} ms"
                          f"  (compile {m.compile_seconds*1e3:.0f} ms, first "
-                         f"call {m.first_run_seconds*1e3:.0f} ms)"
+                         f"call {m.first_run_seconds*1e3:.0f} ms"
+                         + (f", timed as {m.timed_as})" if m.ok else ")")
                          + (f"  [{m.attempts} attempts]" if m.attempts > 1 else "")
                          + ("  [device drained after a timeout]"
                             if m.drained else "")
@@ -484,8 +492,10 @@ class AutoOffloader:
                 c.resources = next(iter(c.variant_estimates.values()))
 
         # ---- Step 4: measured pattern search ---------------------------
-        # the all-ref baseline goes through the same fault policy as every
-        # candidate: an unlucky hiccup must not void the whole search
+        # the all-ref baseline goes through the same path as every
+        # candidate: the same fault policy (an unlucky hiccup must not void
+        # the whole search) and, on a card, the same capture into a CUDA
+        # graph whose replays are timed
         report.baseline = measure_with_retry(
             lambda: (search.time_callable(
                 full_ref, sample, warmup=cfg.warmup, reps=cfg.reps,

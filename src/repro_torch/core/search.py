@@ -1,26 +1,45 @@
 """Verification-environment measurement (paper Step 4 executor).
 
 The paper compiles each candidate pattern for the FPGA (~3 h) and runs the
-app's sample benchmark.  Here a pattern runs eagerly on the program's
-device; the *structure* (bounded number of measured patterns,
+app's sample benchmark; the JAX package compiles it into one XLA
+executable (``jax.jit(fn).lower(*args).compile()``) and times that.  Here a
+pattern is captured into one CUDA graph on a card and its replays are
+timed; the *structure* (bounded number of measured patterns,
 best-of-measured selection) is identical.
 
 A pattern's cost is split in two, as the JAX package splits its AOT path:
 
-* **compile** (:func:`compile_pattern`) is host-only work: the ``nvcc``
-  builds of the CUDA sources the pattern's ``hopper`` genes launch
-  (``kernels/_build.py``, one per source, skipped when the library is
-  current) and ``program.build(impl)``.  Nothing here touches the device,
-  so a verification executor (``core/executor.py``) runs many compiles
-  concurrently on a thread pool.  ``compile_seconds`` is its wall time.
-* **run** is device work, strictly serial: the first synchronized call
-  (``first_run_seconds``: allocator warm-up, the kernels' module loads, the
-  first launches), ``warmup - 1`` more calls, then ``reps`` timed calls;
-  ``run_seconds`` is the median of the kept reps.  On a CUDA device the
-  pattern runs on a stream of its own, each rep bracketed by
-  ``torch.cuda.Event(enable_timing=True)`` records on that stream; on the
-  CPU it is ``time.perf_counter`` (monotonic — ``time.time`` can jump under
-  clock adjustments).
+* **compile** is host work, then one capture.  :func:`compile_pattern`
+  runs the ``nvcc`` builds of the CUDA sources the pattern's ``hopper``
+  genes launch (``kernels/_build.py``, one per source, skipped when the
+  library is current) and ``program.build(impl)``.  Nothing there touches
+  the device, so a verification executor (``core/executor.py``) runs many
+  compiles concurrently on a thread pool.  The capture (and the graph's
+  first, uploading replay) runs later, on the serial timing thread
+  (:func:`time_callable`), after the first call.  ``compile_seconds`` is
+  host compile + capture, as the JAX package's is lower + compile.
+* **run** is device work, strictly serial.  The first synchronized call is
+  eager (``first_run_seconds``: allocator warm-up, the kernels' module
+  loads, the first launches; its output is the one the finite check
+  reads).  On a card the pattern is then captured into a
+  ``torch.cuda.CUDAGraph`` on a stream of its own, in ``thread_local``
+  capture mode and into a private memory pool of the graph's own
+  (``core/cuda_graphs.py``), and replayed once, which uploads it (billed
+  to the compile step with the capture); ``warmup - 1`` replays and
+  ``reps`` timed replays follow, each rep bracketed by
+  ``torch.cuda.Event(enable_timing=True)`` records on that stream, and the
+  graph and its pool are released when the measurement ends.  A capture
+  that fails is a failed measurement (phase ``"compile"``, permanent, the
+  capture's error text): a pattern is never timed eagerly on a card.  On
+  the CPU there is no graph: the calls run eagerly, timed with
+  ``time.perf_counter`` (monotonic — ``time.time`` can jump under clock
+  adjustments).  ``Measurement.timed_as`` says which (``"graph"`` or
+  ``"eager"``).
+
+A built pattern may carry a host seam (``fn.inner`` and ``fn.seam``, as
+``core/faults.wrap_program`` builds it): the graph captures ``inner``, and
+every replay's outputs go through ``seam`` on the host, outside the graph,
+so a run-site fault fires per replay as it fires per eager call.
 
 A rep waits on its own stream only, never on the whole device: on an idle
 card that is the same, and while the device serves other work (the online
@@ -48,6 +67,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.core.cuda_graphs import GraphCall
 from repro_torch.core.regions import (Impl, canonical_gene, gene_variant,
                                       split_gene)
 
@@ -68,7 +88,9 @@ HOPPER_SOURCES = {
 @dataclass
 class Measurement:
     pattern: str
-    compile_seconds: float      # host compile step: nvcc builds + build(impl)
+    # the compile step: nvcc builds + build(impl) on the host, then (on a
+    # card) the capture into a CUDA graph and its uploading replay
+    compile_seconds: float
     run_seconds: float          # median of the kept reps
     runs: list[float]
     ok: bool = True
@@ -92,6 +114,9 @@ class Measurement:
     # a run timed out: its abandoned thread's launches were drained from
     # the device before anything else was timed
     drained: bool = False
+    # how the reps were timed: "graph" (replays of one CUDA graph, on a
+    # card) or "eager" (calls, on the CPU)
+    timed_as: str = "eager"
 
     def mapping(self) -> dict:
         """The measured {region -> variant} mapping (empty = all-ref)."""
@@ -246,6 +271,70 @@ def _device_of(args) -> torch.device:
     return torch.device("cpu")
 
 
+def graph_type(device: torch.device):
+    """The graph class a pattern is captured into on ``device``:
+    ``torch.cuda.CUDAGraph`` on a card, None (eager calls) elsewhere.  The
+    one seam through which a test stands a fake graph in for it."""
+    return torch.cuda.CUDAGraph if device.type == "cuda" else None
+
+
+def capture_pattern(fn, args, *, stream=None) -> GraphCall | None:
+    """The device work of the built pattern ``fn`` on ``args`` (its
+    ``inner``, where it carries a host seam) captured into a graph of
+    :func:`graph_type`, on ``stream`` (on a card by default a new side
+    stream ordered after the current one), and replayed once; None where
+    there is no graph type (the CPU).  Raises when the capture or that
+    replay fails.  The caller has called ``fn`` once eagerly (module
+    loads, kernel builds, allocator warm-up) and releases the graph
+    (:meth:`GraphCall.release`).
+
+    The first launch of a graph uploads it to the device, which costs
+    about a microsecond a node (tdFIR's all-ref graph of ~1,200 nodes:
+    3.38 ms at its first replay, 2.31 ms at its second, on an NVIDIA H100
+    80GB HBM3 at 700.00 W, ``tools/staged_repeat.py``), so that replay
+    belongs to the compile step, as loading an executable belongs to the
+    JAX package's, and no timed replay pays it."""
+    dev = _device_of(args)
+    new_graph = graph_type(dev)
+    if new_graph is None:
+        return None
+    cuda = dev.type == "cuda"
+    if stream is None and cuda:
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = GraphCall(new_graph(), getattr(fn, "inner", fn), args,
+                      stream=stream)
+    try:
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            graph.replay()
+        if cuda:
+            stream.synchronize()
+    except BaseException:
+        graph.release()
+        raise
+    return graph
+
+
+def replay_bit_equal(graph: GraphCall, want, args) -> bool:
+    """Whether a replay of ``graph`` (captured on ``args``) gives ``want``,
+    the output of an eager call on ``args`` (taken before the capture),
+    bit for bit.  Its floating outputs that are not inputs are filled with
+    NaN first, so a replay that writes nothing cannot pass."""
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    inputs = {t.data_ptr() for t in tensors(args)}
+    for t in tensors(graph.outputs):
+        if t.data_ptr() not in inputs and (t.is_floating_point()
+                                           or t.is_complex()):
+            t.fill_(float("nan"))
+    got, want = tensors(graph.replay()), tensors(want)
+    if any(t.is_cuda for t in got):
+        torch.cuda.synchronize()
+    return len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
+
+
 class _RunFailure(RuntimeError):
     """Internal: a run-phase failure whose message is already formatted
     (the watchdog path) — the outer handler must not re-prefix it."""
@@ -261,9 +350,13 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
     """Measure one offload pattern: ``fn`` (or the pattern a
     :func:`compile_pattern` artifact ``precompiled`` holds, whose compile
     seconds — or failure — the Measurement then reports), the first
-    synchronized call, ``warmup - 1`` more calls and ``reps`` timed calls;
-    ``run_seconds`` is the median of the kept reps.  Timing runs on the
-    device of ``args``' tensors (CUDA events on a card).
+    synchronized call, then (on a card) its capture into a CUDA graph,
+    ``warmup - 1`` more calls and ``reps`` timed calls — replays of the
+    graph on a card, eager calls on the CPU; ``run_seconds`` is the median
+    of the kept reps.  Timing runs on the device of ``args``' tensors (CUDA
+    events on a card).  The capture's seconds are billed to
+    ``compile_seconds``; a capture that fails is a permanent failure of
+    phase ``"compile"``.  The graph is released before this returns.
 
     Fault-tolerance knobs (all off by default):
 
@@ -285,17 +378,20 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
     ``ok=False``."""
     impl = dict(impl) if impl is not None else None
     art = precompiled if precompiled is not None else CompiledArtifact(fn, 0.0)
+    compile_s = art.compile_seconds
 
-    def failed(phase: str, error: str, drained: bool = False) -> Measurement:
-        return Measurement(pattern, art.compile_seconds, float("inf"), [],
+    def failed(phase: str, error: str, drained: bool = False,
+               kind: str = "") -> Measurement:
+        return Measurement(pattern, compile_s, float("inf"), [],
                            False, error, impl=impl,
-                           compile_wall_s=art.compile_seconds,
-                           failure_kind=classify_failure(error),
+                           compile_wall_s=compile_s,
+                           failure_kind=kind or classify_failure(error),
                            failure_phase=phase, drained=drained)
 
     if not art.ok:
         return failed("compile", art.error)
     call = art.fn
+    seam = getattr(call, "seam", None)
     dev = _device_of(args)
     cuda = dev.type == "cuda"
     stream = None
@@ -303,6 +399,7 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
         stream = torch.cuda.Stream(dev)
         # the sample inputs were made on the caller's stream
         stream.wait_stream(torch.cuda.current_stream(dev))
+    graph: GraphCall | None = None
 
     def drain() -> None:
         if cuda:
@@ -311,6 +408,14 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
     def on_stream():
         return (torch.cuda.stream(stream) if cuda
                 else contextlib.nullcontext())
+
+    def again():
+        # every call after the first: a replay, its outputs through the
+        # pattern's host seam, or (no graph) an eager call
+        if graph is None:
+            return call(*args)
+        out = graph.replay()
+        return out if seam is None else seam(out)
 
     def first_call():
         with on_stream():
@@ -321,7 +426,7 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
 
     def plain_call():
         with on_stream():
-            return call(*args)
+            return again()
 
     def timed_rep() -> float:
         with on_stream():
@@ -330,12 +435,12 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
                 end = torch.cuda.Event(enable_timing=True)
                 drain()
                 start.record(stream)
-                call(*args)
+                again()
                 end.record(stream)
                 end.synchronize()
                 return start.elapsed_time(end) / 1e3
             t = time.perf_counter()
-            call(*args)
+            again()
             return time.perf_counter() - t
 
     def guarded(body):
@@ -362,6 +467,18 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
         if check_finite and _nonfinite(out):
             return failed("run", "NonFiniteOutput: pattern produced NaN/Inf")
         del out
+        # the compile step's device half: the capture, on this (the serial
+        # timing) thread, never under the run watchdog — an abandoned
+        # capture would hold the one-capture lock
+        t0 = time.perf_counter()
+        try:
+            graph = capture_pattern(call, args, stream=stream)
+        except Exception as e:  # noqa: BLE001 — a pattern failing = not a solution
+            compile_s += time.perf_counter() - t0
+            return failed("compile", f"GraphCapture: {type(e).__name__}: {e}",
+                          kind="permanent")
+        compile_s += time.perf_counter() - t0
+        timed_as = "eager" if graph is None else "graph"
         try:
             for _ in range(max(warmup - 1, 0)):
                 guarded(plain_call)
@@ -381,10 +498,13 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
             return failed("run", str(e), "RunTimeout" in str(e))
         except Exception as e:  # noqa: BLE001 — a pattern failing = not a solution
             return failed("run", f"{type(e).__name__}: {e}")
-    return Measurement(pattern, art.compile_seconds, float(np.median(kept)),
+        finally:
+            if graph is not None:
+                graph.release()
+    return Measurement(pattern, compile_s, float(np.median(kept)),
                        runs, impl=impl, first_run_seconds=first_s,
-                       compile_wall_s=art.compile_seconds,
-                       outliers_rejected=rejected)
+                       compile_wall_s=compile_s,
+                       outliers_rejected=rejected, timed_as=timed_as)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ timings; here the winners are held to fixed patterns whose gaps are a
 deterministic, so nothing is re-timed and each row records
 ``"decided_by": "plan"``.
 
+:func:`check` holds the rows to those assertions.  Three of them are
+decided by a clock: the two winners (a pattern wins by its timed median)
+and the rollback tick against the median tick.  They are asserted on a
+card only; on the CPU, where another process's load can stall a rep by
+more than a 200-trip loop takes, they are reported, not asserted, as in
+``launch/autotune.py``.  Every other assertion holds everywhere: faults
+fired and were retried, the NaN gene is quarantined and never wins,
+exactly one rollback, no request dropped.
+
 Sizes: ``--arch`` defaults to the JAX benchmark's qwen2-72b; with
 ``--reduced`` its reduced config runs in float32 (the CPU tests);
 without, the full config in its own dtype on the card (``chip_smoke.py``
@@ -113,17 +122,6 @@ def bench_fault_storm(device) -> dict:
     measurements = storm.measurements + (
         [storm.baseline] if storm.baseline is not None else [])
     n_retries = sum(max(0, m.attempts - 1) for m in measurements)
-    assert n_injected > 0, "the storm never fired"
-    assert n_retries > 0, "transient faults were injected but never retried"
-    # the storm costs retries, never correctness: the clean winner less
-    # the permanently broken gene
-    assert clean.best_pattern == {A: "offload", B: "offload"}, (
-        f"clean winner {clean.best_pattern}")
-    assert storm.best_pattern == {A: "offload"}, (
-        f"storm winner {storm.best_pattern}: the healthy gene must win and "
-        "the NaN gene must not")
-    assert f"{B}=offload" in storm.quarantined, (
-        f"NaN gene missing from quarantine: {storm.quarantined}")
     return {
         "app": "faults_bench", "mode": "fault-storm",
         "n_faults_injected": n_injected,
@@ -134,6 +132,7 @@ def bench_fault_storm(device) -> dict:
         "storm_overhead_x": storm_s / max(clean_s, 1e-9),
         "speedup": storm.speedup,
         "best_pattern": Impl(storm.best_pattern).describe(),
+        "clean_best_pattern": Impl(clean.best_pattern).describe(),
         "quarantined": list(storm.quarantined),
         "decided_by": "plan",
     }
@@ -183,30 +182,56 @@ def bench_rollback(device, arch: str = ARCH, reduced: bool = True,
         while engine.busy and len(tick_s) < 2000:
             tick()
         assert not engine.busy, "drain exceeded tick budget"
-        assert engine.rollbacks == 1, (
-            f"expected exactly one rollback, got {engine.rollbacks}")
-        assert rollback_tick is not None
-        done = engine.finished_total
-        assert done == submitted, (
-            f"rollback dropped requests: {done}/{submitted} finished")
+        assert rollback_tick is not None, "no tick rolled back"
 
         steady = sorted(tick_s)[: max(1, int(len(tick_s) * 0.9))]
         med = median(steady)
         rb_s = tick_s[rollback_tick - 1]
-        assert rb_s < 10 * med, (
-            f"rollback tick {rb_s * 1e3:.1f} ms vs median {med * 1e3:.1f} ms"
-            " — rollback leaked a build into the tick path")
         return {
             "app": arch, "mode": "rollback",
             "rollbacks": engine.rollbacks,
             "rollback_tick": rollback_tick,
             "rollback_tick_ms": rb_s * 1e3,
             "median_tick_ms": med * 1e3,
-            "requests": done,
+            "requests": engine.finished_total,
+            "submitted": submitted,
             "decided_by": "plan",
         }
     finally:
         unregister_variant("mlp_core", "poison")
+
+
+def check(rows, timed: bool = True) -> None:
+    """The JAX benchmark's assertions on the two rows; those a clock
+    decides (the winners, the rollback tick against the median) only when
+    ``timed``, as on a card."""
+    storm, rb = rows
+    assert storm["n_faults_injected"] > 0, "the storm never fired"
+    assert storm["n_retries"] > 0, (
+        "transient faults were injected but never retried")
+    nan_gene = f"{B}=offload"
+    assert nan_gene in storm["quarantined"], (
+        f"NaN gene missing from quarantine: {storm['quarantined']}")
+    assert nan_gene not in storm["best_pattern"], (
+        f"storm winner {storm['best_pattern']}: the NaN gene must not win")
+    assert rb["rollbacks"] == 1, (
+        f"expected exactly one rollback, got {rb['rollbacks']}")
+    assert rb["requests"] == rb["submitted"], (
+        f"rollback dropped requests: {rb['requests']}/{rb['submitted']} "
+        "finished")
+    if not timed:
+        return
+    # the storm costs retries, never correctness: the clean winner less
+    # the permanently broken gene
+    both = Impl({A: "offload", B: "offload"}).describe()
+    assert storm["clean_best_pattern"] == both, (
+        f"clean winner {storm['clean_best_pattern']}")
+    assert storm["best_pattern"] == f"{A}=offload", (
+        f"storm winner {storm['best_pattern']}: the healthy gene must win")
+    assert rb["rollback_tick_ms"] < 10 * rb["median_tick_ms"], (
+        f"rollback tick {rb['rollback_tick_ms']:.1f} ms vs median "
+        f"{rb['median_tick_ms']:.1f} ms — rollback leaked a build into the "
+        "tick path")
 
 
 def main(argv=None) -> list[dict]:
@@ -232,7 +257,14 @@ def main(argv=None) -> list[dict]:
     print(f"{r['mode']:>12} | {r['app']}: rollback tick "
           f"{r['rollback_tick_ms']:.1f} ms vs median "
           f"{r['median_tick_ms']:.1f} ms | {r['requests']} requests, "
-          "0 dropped")
+          f"{r['submitted'] - r['requests']} dropped")
+    print(f"# winners: clean {s['clean_best_pattern']}, storm "
+          f"{s['best_pattern']}"
+          + ("" if dev.type == "cuda" else
+             " (on the CPU the winners and the rollback tick are reported, "
+             "not asserted)"))
+    # the host clock of a shared CPU decides no timing claim
+    check(rows, timed=dev.type == "cuda")
     if a.json:
         with open(a.json, "w") as fh:
             json.dump({"section": "faults", "backend": backend_name(dev),

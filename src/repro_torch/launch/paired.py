@@ -9,6 +9,9 @@ When a comparison still fails after the retry, the two winning patterns A
 and B are re-timed paired (:func:`retime`):
 
 1. each is built once, from one program instance, on one sample input;
+   on a card it is called once and captured into a CUDA graph, as Step 4
+   captures a pattern (``search.capture_pattern``), and a call below is a
+   replay of that graph;
 2. each is warmed with one call;
 3. 5 rounds of A, B, B, A follow, every call timed on its own: on a card
    with CUDA events after a ``torch.cuda.synchronize()``, on the CPU with
@@ -33,7 +36,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core.regions import Impl
-from repro_torch.core.search import compile_pattern, pattern_sources
+from repro_torch.core.search import (capture_pattern, compile_pattern,
+                                     pattern_sources)
 
 TIE = 1.05
 ROUNDS = 5
@@ -85,9 +89,11 @@ def retime(program, impl_a, impl_b, *, seed: int = 0,
            rounds: int = ROUNDS) -> float:
     """Rule P's statistic for the patterns ``impl_a`` (A) and ``impl_b``
     (B) of ``program``, both built from this instance and run on one
-    sample input on ``program.device``."""
+    sample input on ``program.device`` (replays of their CUDA graphs on a
+    card, released when the ratio is taken)."""
     args = program.sample_inputs(seed, program.device)
     on_card = torch.device(program.device).type == "cuda"
+    graphs = []
 
     def built(impl):
         # the planner's compile step: the kernels' builds on a card only
@@ -96,7 +102,15 @@ def retime(program, impl_a, impl_b, *, seed: int = 0,
         if not art.ok:
             raise RuntimeError(f"paired re-time: {Impl(dict(impl)).describe()}"
                                f": the pattern does not build: {art.error}")
-        return lambda: art.fn(*args)
+        if not on_card:
+            return lambda: art.fn(*args)
+        art.fn(*args)        # module loads and allocator warm-up, then capture
+        graphs.append(capture_pattern(art.fn, args))
+        return graphs[-1].replay
 
-    return paired_ratio(built(impl_a), built(impl_b), rounds=rounds,
-                        timer=lambda fn: call_seconds(fn, program.device))
+    try:
+        return paired_ratio(built(impl_a), built(impl_b), rounds=rounds,
+                            timer=lambda fn: call_seconds(fn, program.device))
+    finally:
+        for graph in graphs:
+            graph.release()

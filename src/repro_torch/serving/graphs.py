@@ -17,16 +17,13 @@ On a card, construction
    write their KV slots).  The warm-up also builds every kernel that
    ``nvcc`` has not built yet, so no build runs inside a capture;
 2. captures one call on that side stream against ``fixed`` and static
-   device buffers for ``fed``, in ``thread_local`` capture mode: another
-   thread may go on replaying graphs and copying to and from the device
-   meanwhile (the engine ticks while the online replanner prepares the
-   next generation on its own thread).  One capture runs at a time.  A
-   capture that fails raises: there is no eager fallback.  A host sync
-   anywhere in the step (``.item()``, ``int()`` of a tensor, ``.cpu()``, a
-   Python branch on a tensor value) fails the capture, so the capture is
-   the check that the step has none.  Garbage collection is held off
-   during a capture: collecting an unreachable graph destroys it, which a
-   capture in progress does not survive.
+   device buffers for ``fed`` (``core/cuda_graphs.py``: one capture at a
+   time, in ``thread_local`` capture mode, garbage collection held off),
+   so another thread may go on replaying graphs meanwhile (the engine
+   ticks while the online replanner prepares the next generation on its
+   own thread).  A capture that fails raises: there is no eager fallback.
+   A host sync anywhere in the step fails the capture, so the capture is
+   the check that the step has none.
 
 A call copies the host inputs into pinned staging buffers, from there into
 the static buffers (``non_blocking``), replays the graph and returns its
@@ -49,38 +46,17 @@ enqueues the next replay (stream order does the rest).  Each generation
 has a pool of its own, so a generation captured on another thread while
 the serving one replays is never handed memory a live replay is writing.
 
-**Launch counters.**  Each kernel wrapper adds one to its ``launches``
-where it launches.  Under a capture that line runs once and no kernel
-executes, so a StepGraph takes each counter's delta over the capture back
-and adds it at every replay: the counters go on counting kernel
-executions.  A replay on another thread while a capture is in progress
-holds its additions back until the capture has taken its delta back, so
-neither is lost.
+**Launch counters.**  The capture takes each kernel counter's delta back
+and a StepGraph adds it at every replay (``core/cuda_graphs.py``), so the
+counters go on counting kernel executions.
 """
 from __future__ import annotations
-
-import gc
-import threading
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import launch_counters
+from repro_torch.core.cuda_graphs import add_launches, capture
 from repro_torch.models.params import tree_leaves
-
-_CAPTURE_LOCK = threading.Lock()      # one capture at a time
-_COUNT_LOCK = threading.Lock()        # guards the two below
-_capturing = [False]
-_held: list = []                      # (counter, delta) of replays meanwhile
-
-
-def _add_launches(deltas) -> None:
-    with _COUNT_LOCK:
-        if _capturing[0]:
-            _held.extend(deltas)
-            return
-        for counter, delta in deltas:
-            counter.launches += delta
 
 
 class EagerStep:
@@ -133,40 +109,10 @@ class StepGraph(EagerStep):
                 fn(*(self.fixed if warm_fixed is None else warm_fixed),
                    *self._static)
             side.synchronize()
-            counters = launch_counters()
             graph = torch.cuda.CUDAGraph()
-            with _CAPTURE_LOCK:
-                # no garbage collection inside a capture: a collected
-                # graph's destructor (cudaGraphExecDestroy) invalidates it.
-                # Collect first, as torch.cuda.graph does, then hold off
-                # collection until the capture has ended
-                gc.collect()
-                collecting = gc.isenabled()
-                gc.disable()
-                with _COUNT_LOCK:
-                    _capturing[0] = True
-                    before = [c.launches for c in counters]
-                try:
-                    with torch.cuda.stream(side):
-                        graph.capture_begin(pool=pool,
-                                            capture_error_mode="thread_local")
-                        try:
-                            self.outputs = fn(*self.fixed, *self._static)
-                        finally:
-                            graph.capture_end()
-                finally:
-                    if collecting:
-                        gc.enable()
-                    with _COUNT_LOCK:
-                        self.deltas = [(c, c.launches - b)
-                                       for c, b in zip(counters, before)
-                                       if c.launches != b]
-                        for c, b in zip(counters, before):
-                            c.launches = b
-                        _capturing[0] = False
-                        held = list(_held)
-                        _held.clear()
-                    _add_launches(held)
+            self.outputs, self.deltas = capture(
+                graph, fn, (*self.fixed, *self._static), stream=side,
+                pool=pool)
             # the replays run on the caller's stream: order them after the
             # warm-up's writes
             cur.wait_stream(side)
@@ -183,5 +129,5 @@ class StepGraph(EagerStep):
             buf.copy_(pin, non_blocking=True)
         self._copied.record()
         self.graph.replay()
-        _add_launches(self.deltas)
+        add_launches(self.deltas)
         return self.outputs

@@ -24,9 +24,12 @@ module closes the loop (ROADMAP "online replanning"):
    prime the ledger (re-proposed known patterns cost zero budget), the
    persisted CostModel state pre-calibrates the surrogate, and a long-lived
    ``AutoOffloader`` keeps its ``CompileCache`` warm across replans.  The
-   search times each pattern on a stream of its own
-   (``search.time_callable``), never by a whole-device sync that would
-   wait on (and count) the ticks.
+   search captures each pattern into a CUDA graph and times its replays on
+   a stream of its own (``search.time_callable``), never by a whole-device
+   sync that would wait on (and count) the ticks.  Its captures run in
+   ``thread_local`` mode into a private pool of each graph's own, so a
+   live replay of the serving generation is never handed memory that a
+   measured pattern writes (the rule of ``serving/graphs.py``).
 
 3. **Atomic hot-swap**: a strictly-better winner is built off-thread
    (``engine.prepare_plan`` — on a card its CUDA graphs are captured on the

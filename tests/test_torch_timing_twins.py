@@ -163,13 +163,53 @@ def test_faults_storm_quarantines_the_nan_gene_and_rollback_drops_nothing(
         capsys):
     storm, rollback = faults.main(["--reduced"] + CPU)
     assert storm["n_faults_injected"] > 0 and storm["n_retries"] > 0
-    assert storm["best_pattern"] == f"{faults.A}=offload"
+    # which healthy pattern wins is timed (asserted on a card only): the
+    # NaN gene never wins
+    assert storm["best_pattern"] in ("all-ref", f"{faults.A}=offload")
     assert storm["quarantined"] == [f"{faults.B}=offload"]
     assert storm["n_quarantined"] == 1
     assert rollback["app"] == "qwen2-72b" and rollback["rollbacks"] == 1
     assert rollback["requests"] == faults.TICKS
     assert rollback["rollback_tick"] > faults.OFFER_TICK
     assert "0 dropped" in capsys.readouterr().out
+
+
+def _fault_rows(**change):
+    """A storm and a rollback row that pass every check, with ``change``
+    applied (a key of either row)."""
+    a, b = f"{faults.A}=offload", f"{faults.B}=offload"
+    storm = dict(n_faults_injected=4, n_retries=3, quarantined=[b],
+                 best_pattern=a, clean_best_pattern=f"{a}+{b}")
+    rb = dict(rollbacks=1, requests=12, submitted=12, rollback_tick_ms=30.0,
+              median_tick_ms=15.0)
+    for key, value in change.items():
+        (storm if key in storm else rb)[key] = value
+    return [storm, rb]
+
+
+@pytest.mark.parametrize("change,timing", [
+    ({}, None),
+    ({"best_pattern": "all-ref"}, "storm winner"),
+    ({"clean_best_pattern": f"{faults.A}=offload"}, "clean winner"),
+    ({"rollback_tick_ms": 151.0}, "rollback tick"),
+    ({"n_retries": 0}, False),
+    ({"quarantined": []}, False),
+    ({"best_pattern": f"{faults.B}=offload"}, False),
+    ({"rollbacks": 2}, False),
+    ({"requests": 11}, False)])
+def test_faults_timed_claims_are_asserted_on_a_card_only(change, timing):
+    rows = _fault_rows(**change)
+    if timing is None:
+        faults.check(rows)
+        faults.check(rows, timed=False)
+    elif timing is False:               # not a clock's claim: fails anywhere
+        for timed in (True, False):
+            with pytest.raises(AssertionError):
+                faults.check(rows, timed=timed)
+    else:
+        with pytest.raises(AssertionError, match=timing):
+            faults.check(rows)
+        faults.check(rows, timed=False)
 
 
 # --------------------------------------------------------------------------

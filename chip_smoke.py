@@ -325,7 +325,8 @@ sys.path.insert(0, str(ROOT / "src"))  # sys-path: run alone, see above
 # module of the card's figures
 from repro_torch.launch.constants import (  # noqa: E402
     HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S,
-    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, SFU_RATE as SFU_OPS_PER_S)
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S, PEAK_FLOPS_TF32 as TF32_FLOPS_PER_S,
+    SFU_RATE as SFU_OPS_PER_S)
 
 ARCH = "mistral-nemo-12b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -399,8 +400,10 @@ REPLAN_MAX_WAIT_S = 240.0
 WORKERS_MEDIAN_FACTOR = 5.0
 # the first versions of the attention kernels (scalar FP32 FMAs over float32
 # tiles; one decode block per (b, kv head)) at phase 3's timed shapes, from
-# an earlier run on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
-FLASH_FIRST_MS = {"serve S=2048": 1.5621, "hybrid S=2048": 1.1555}
+# an earlier run on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md); the float32
+# instance's first version is the same scalar body on float32 inputs
+FLASH_FIRST_MS = {"serve S=2048": 1.5621, "hybrid S=2048": 1.1555,
+                  "serve S=2048 f32": 1.4809}
 DECODE_FIRST_MS = 0.2099
 # the first version of rglru_scan (one thread per channel walking time) at
 # [1, 2,080, 2,560] bf16, an eager wrapper call; of fir_filter_bank (one
@@ -764,8 +767,10 @@ def plan_peak(torch, dev, plan):
 
 
 def flash_instance(name: str) -> str:
-    """'D x block_q x block_k' of a mangled flash_wgmma_kernel name."""
-    m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+    """'D x block_q x block_k' of a mangled flash_wgmma_kernel (bf16) or
+    flash_tf32_kernel (float32) name."""
+    m = re.search(r"flash_(?:wgmma|tf32)_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                  name)
     return "x".join(m.groups()) if m else name
 
 
@@ -1036,7 +1041,9 @@ def main() -> int:
     # bf16 2e-2 and f32 2e-5: the flash tolerances of tests/test_kernels.py
     # (outputs are averages of unit normals; bf16 rounding of p and o)
     tols = {bf16: 2e-2, f32: 2e-5}
-    flops_rate = {bf16: BF16_FLOPS_PER_S, f32: FP32_FLOPS_PER_S}
+    # float32 runs as split-TF32 products: three TF32 products for each
+    # float32 one; the FP32 CUDA cores' rate stays printed as a yardstick
+    flops_rate = {bf16: BF16_FLOPS_PER_S, f32: TF32_FLOPS_PER_S / 3}
 
     def flash_direct(q, k, v, window, block_q, block_k, causal=True):
         """The kernel from its C entry point (as ``c_entry``)."""
@@ -1122,24 +1129,41 @@ def main() -> int:
                   f"({bound_by}, {bound_ms / ms:.1%} of it)")
             print(f"  clocks.sm, clocks.max.sm, power.draw, temperature: "
                   f"{clocks()}")
+            # the dynamic shared memory the launch asks for (the C entry
+            # point's figure) is what Step 3's resource filter read
+            launched = FA._lib().flash_attention_smem_bytes(
+                bq, bk, d, int(dt == bf16))
             print(f"  cudaFuncGetAttributes ({bq}x{bk}, head_dim {d}): "
                   f"{FA.kernel_attributes(bq, bk, d, dt)}; dynamic smem "
-                  f"{FA.smem_bytes(bq, bk, d, dt)} B/block, "
-                  f"{FA.threads(bq, d, dt)} threads; Step-3 estimate "
-                  f"{est.resource_bytes:.0f} B/block")
-            if dt == bf16:
-                sweep = {(pq, pk): graph_ms(torch, flash_direct(
-                    q, k, v, window, pq, pk), 10)[0]
-                    for pq in FA.BLOCK_QS for pk in FA.BLOCK_KS
-                    if FA.fits(pq, pk, d, dt)}
-                best = min(sweep, key=sweep.get)
-                print("  bf16 tile points (block_q x block_k: kernel ms): "
-                      + ", ".join(f"{pq}x{pk}: {t:.4f}"
-                                  for (pq, pk), t in sweep.items())
-                      + f"; best {best[0]}x{best[1]}, default {bq}x{bk}")
+                  f"{launched} B/block, {FA.threads(bq, d, dt)} threads; "
+                  f"Step-3 estimate {est.resource_bytes:.0f} B/block")
+            if est.resource_bytes != launched:
+                raise AssertionError(
+                    f"flash_attention {label}: Step 3 estimates "
+                    f"{est.resource_bytes} B of shared memory, the launch "
+                    f"takes {launched}")
+            sweep = {(pq, pk): graph_ms(torch, flash_direct(
+                q, k, v, window, pq, pk), 10 if dt == bf16 else 3)[0]
+                for pq in FA.BLOCK_QS for pk in FA.BLOCK_KS
+                if FA.fits(pq, pk, d, dt)}
+            best = min(sweep, key=sweep.get)
+            print(f"  {str(dt).removeprefix('torch.')} tile points (block_q x "
+                  "block_k: kernel ms): "
+                  + ", ".join(f"{pq}x{pk}: {t:.4f}"
+                              for (pq, pk), t in sweep.items())
+                  + f"; best {best[0]}x{best[1]}, default {bq}x{bk}")
             found = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms}
+            if dt == f32:
+                # the FP32 CUDA cores' bound, the first version's yardstick
+                fp32_ms, _ = flash_bound_ms(b, hq, hkv, n, d, elem, True,
+                                            window, FP32_FLOPS_PER_S)
+                found |= {"fp32_bound_ms": fp32_ms, "first_ms": earlier}
+                print(f"  3xTF32 bound {bound_ms:.4f} ms ({bound_ms / ms:.1%}"
+                      f" of it); FP32 CUDA-core bound {fp32_ms:.4f} ms "
+                      f"({fp32_ms / ms:.1%}); first version {earlier} ms "
+                      f"({earlier / ms:.2f}x this one) [{card}]")
             if label == "hybrid S=2048":
                 flash256 = found
             elif label == "serve S=2048 f32":
@@ -1247,6 +1271,24 @@ def main() -> int:
                 not c["HGMMA"] or not c["UTMALDG"] for c in counts.values()):
             raise AssertionError("flash_attention: a bf16 instance without "
                                  "HGMMA or UTMALDG")
+    # the float32 instances run their split-TF32 products on the tensor
+    # cores too (HGMMA; they load with the SM's own loads, not TMA)
+    tf = [e for e in ptxas_entries(_build.ptxas_report("flash_attention"))
+          if "flash_tf32_kernel" in e[0]]
+    print("flash_attention float32 instances (D x block_q x block_k: "
+          "registers, stack frame / spill store / spill load bytes): "
+          + ", ".join(f"{flash_instance(n)}: {r}, {fr}/{st}/{ld}"
+                      for n, r, fr, st, ld in tf))
+    counts = sass_counts(_build.library_path("flash_attention"),
+                         "flash_tf32_kernel", ("HGMMA", "HMMA"))
+    if counts is not None:
+        print("flash_attention float32 SASS (HGMMA, HMMA): " + ", ".join(
+            f"{flash_instance(n)}: {c['HGMMA']}, {c['HMMA']}"
+            for n, c in counts.items()))
+        if len(counts) != len(tf) or any(
+                not (c["HGMMA"] or c["HMMA"]) for c in counts.values()):
+            raise AssertionError("flash_attention: a float32 instance "
+                                 "without tensor-core products (HGMMA/HMMA)")
 
     def decode_direct(q, k, v, sp, cp, window, block_k):
         """The split and combine kernels from their C entry point (as

@@ -59,20 +59,45 @@
 //   take 160-192 registers a thread.  setmaxnreg acts on whole warpgroups:
 //   a lone producer warp waits in it for three warps that do not exist.
 //
-// float32: flash_kernel, scalar FP32 FMAs.  TF32 tensor cores keep about 10
-// mantissa bits, which cannot hold the float32 tolerance of 2e-5, and
-// float32 attention is on no served path, so it stays on CUDA cores:
-// * grid = (query tiles of block_q rows, B * Hq); K and V stream through
-//   shared memory in tiles of BK keys, with the online softmax (running
-//   max m, sum l, accumulator) in registers, and the same tile skips and
-//   masks as the bf16 kernel.
-// * each thread owns 4 query rows (ty + TY * r) and BK / TX keys
-//   (tx + TX * c) of the score tile, then the same 4 rows and D / TX output
-//   columns (tx + TX * c) of the accumulator.  TX = 8 threads share a row
-//   group up to D = 128, and TX = 16 at D = 256 (so block_q <= 64 there).
-//   Rows of q, k and v in shared memory are D + 4 floats apart, which keeps
-//   float4 loads aligned and puts neighbouring rows on different banks.
-// * q is scaled in float32, as in the TPU kernel.
+// float32: flash_tf32_kernel, split-TF32 (3xTF32) products on the tensor
+// cores.  A single TF32 product keeps 10 of float32's 23 mantissa bits and
+// misses the float32 tolerance of 2e-5 (tests/test_torch_tf32_split.py); a
+// split one does not.  Each operand x is cut into x = hi + lo, hi
+// rounded to TF32 to nearest (ties away) and lo = x - hi, and a.b is taken
+// as hi_a.hi_b + hi_a.lo_b + lo_a.hi_b in float32 accumulators (lo.lo is
+// below float32's rounding), ~21 bits a product.  Three TF32 products run at
+// 495 / 3 = 165 TFLOP/s, 2.5x the FP32 CUDA cores.  At the serving shape the
+// products bound it (3 x 34 GFLOP: 208 us), not the 84 MB of q/k/v/o.
+// * route: wgmma .tf32, as the bf16 body, with the split done where the
+//   operand lives.  TF32 wgmma reads a shared-memory operand only K-major,
+//   so V (keys x D, the B operand of P.V) is stored transposed, and both
+//   halves of each B operand sit in shared memory.  A first version on
+//   warp-level mma.sync m16n8k8, which split every fragment in registers
+//   from raw float32 tiles (each warp splitting the same K and V again),
+//   was tried first and dropped for this one.
+// * a block has one producer warpgroup and BQ / 64 consumer warpgroups of 64
+//   query rows each; grid = (query tiles, B * Hq), the q tiles with the most
+//   kv tiles first.  The producer loads the Q tile once, raw, then for each
+//   kv tile reads K and V from global memory (4 pieces of 16 bytes of each
+//   in flight a thread), splits them and writes K hi / lo as [BK][D] and V
+//   hi / lo transposed as [D][BK], both in the 128-byte swizzle wgmma reads
+//   (64-byte for K at D = 16), into a ring of two stages (one where two do
+//   not fit beside Q: D = 256, and 64 x 64 at D = 128).  "full" mbarriers
+//   (after fence.proxy.async: generic stores read by the async proxy) and
+//   "empty" ones hand the stages over.  With two consumer warpgroups,
+//   setmaxnreg gives the producer 136 registers and each consumer 184.
+// * S = Q.K^T: wgmma m64n{BK}k8 with A (q * scale, split, read from the raw
+//   Q tile) in registers, two k8 steps a group in two register sets so that
+//   a set is refilled while the other's products run, and B from the ring;
+//   q is scaled in float32 before the product, as the TPU kernel does.
+// * the S accumulator is the bf16 body's layout, so the float32 body shares
+//   its online softmax (softmax_tile: exp2, the same masks and the finite
+//   NEG_INF), in float32, with the scale log2(e) alone (q is scaled).  A
+//   warpgroup skips a tile whose keys its 64 rows all mask.
+// * O += P.V: wgmma m64n{D}k8; the S fragment of 8 keys, split, is the A
+//   fragment of one k8 step when lane t's keys (2t, 2t + 1) are its k = t
+//   and k = t + 4, so V^T keeps its keys in that order (vt_position).
+// * o = acc / max(l, 1e-30), rows >= S not stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,217 +106,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-// ---------------------------------------------------------------------------
-// float32: scalar body
-// ---------------------------------------------------------------------------
-constexpr int ROWS = 4;         // query rows per thread
-constexpr int PAD = 4;          // floats of padding per shared-memory row
-constexpr int LOAD_BATCH = 8;   // 16-byte loads in flight per thread
-constexpr int MAX_THREADS = 256;
-
-// rows [r0, r0 + nrows) of a [S, D] matrix at element offset `base`, times
-// `scale`, into dst (row stride D + PAD); rows >= S are zeros.  Each thread
-// issues LOAD_BATCH 16-byte loads before it uses any.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          size_t base, int r0, int nrows,
-                                          int S, int D, float scale) {
-  const int ld = D + PAD;
-  const int step = blockDim.x;
-  const int vpr = D / 4, total = nrows * vpr;
-  const float* p = src + base;
-  for (int i0 = threadIdx.x; i0 < total; i0 += LOAD_BATCH * step) {
-    float4 t[LOAD_BATCH];
-#pragma unroll
-    for (int j = 0; j < LOAD_BATCH; ++j) {
-      const int i = i0 + j * step;
-      const int r = i / vpr, c = (i % vpr) * 4;
-      t[j] = (i < total && r0 + r < S)
-                 ? *reinterpret_cast<const float4*>(p + static_cast<size_t>(r0 + r) * D + c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < LOAD_BATCH; ++j) {
-      const int i = i0 + j * step;
-      if (i >= total) break;
-      const int r = i / vpr, c = (i % vpr) * 4;
-      *reinterpret_cast<float4*>(dst + r * ld + c) =
-          make_float4(t[j].x * scale, t[j].y * scale, t[j].z * scale, t[j].w * scale);
-    }
-  }
-}
-
-// threads per row group at head width D
-__host__ __device__ constexpr int threads_per_row(int d) { return d >= 256 ? 16 : 8; }
-
-template <int TX>
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < TX; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int TX>
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < TX; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int BK, int D>
-__global__ void __launch_bounds__(MAX_THREADS)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int S, int Hq,
-             int Hkv, int block_q, int causal, int window, float scale) {
-  constexpr int TX = threads_per_row(D);
-  constexpr int LD = D + PAD;
-  constexpr int LDP = BK + 1;
-  constexpr int CK = BK / TX;     // keys per thread
-  constexpr int CD = D / TX;      // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [block_q][LD], q * scale
-  float* ks = qs + block_q * LD;          // [BK][LD]
-  float* vs = ks + BK * LD;               // [BK][LD]
-  float* ps = vs + BK * LD;               // [block_q][LDP]
-
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-  const int TY = block_q / ROWS;
-  const int bh = blockIdx.y;              // b * Hq + qh
-  const int b = bh / Hq, qh = bh % Hq;
-  const int kvh = qh / (Hq / Hkv);
-  const size_t q_base = static_cast<size_t>(bh) * S * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + kvh) * S * D;
-  const int q0 = blockIdx.x * block_q;
-
-  load_rows(qs, q, q_base, q0, block_q, S, D, scale);
-
-  float m[ROWS], l[ROWS], acc[ROWS][CD];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (S + BK - 1) / BK;
-  const int kt_end = causal ? min(n_tiles, (q0 + block_q + BK - 1) / BK)
-                            : n_tiles;
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    load_rows(ks, k, kv_base, k0, BK, S, D, 1.f);
-    load_rows(vs, v, kv_base, k0, BK, S, D, 1.f);
-    __syncthreads();
-
-    float s[ROWS][CK];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int c = 0; c < CK; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + TY * i) * LD + d);
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + TX * c) * LD + d);
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          s[i][c] = fmaf(qv[i].x, kv.x, s[i][c]);
-          s[i][c] = fmaf(qv[i].y, kv.y, s[i][c]);
-          s[i][c] = fmaf(qv[i].z, kv.z, s[i][c]);
-          s[i][c] = fmaf(qv[i].w, kv.w, s[i][c]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = ty + TY * i;
-      const int qi = q0 + row;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const int kj = k0 + tx + TX * c;
-        const bool ok = kj < S && (!causal || kj <= qi) &&
-                        (window <= 0 || kj > qi - window);
-        s[i][c] = ok ? s[i][c] : NEG_INF;
-        mt = fmaxf(mt, s[i][c]);
-      }
-      const float mn = fmaxf(m[i], row_max<TX>(mt));
-      const float alpha = expf(m[i] - mn);
-      float lt = 0.f;
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float p = expf(s[i][c] - mn);
-        lt += p;
-        ps[row * LDP + tx + TX * c] = p;
-      }
-      l[i] = l[i] * alpha + row_sum<TX>(lt);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = ps[(ty + TY * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const float vv = vs[j * LD + tx + TX * c];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qi = q0 + ty + TY * i;
-    if (qi >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    const size_t row = q_base + static_cast<size_t>(qi) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) o[row + tx + TX * c] = acc[i][c] / den;
-  }
-}
-
-size_t scalar_smem_bytes(int block_q, int block_k, int d) {
-  return sizeof(float) * (static_cast<size_t>(block_q) * (d + PAD) +
-                          2 * static_cast<size_t>(block_k) * (d + PAD) +
-                          static_cast<size_t>(block_q) * (block_k + 1));
-}
-
-template <int BK, int D>
-int launch_scalar(const void* q, const void* k, const void* v, void* o, int B,
-                  int Hq, int Hkv, int S, int block_q, int causal, int window,
-                  float scale, cudaStream_t stream) {
-  const int threads = block_q / ROWS * threads_per_row(D);
-  if (block_q % ROWS != 0 || threads % 32 != 0 || threads > MAX_THREADS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = scalar_smem_bytes(block_q, BK, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<BK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((S + block_q - 1) / block_q, B * Hq);
-  flash_kernel<BK, D><<<grid, threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv,
-      block_q, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by TMA
@@ -915,6 +729,485 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// float32: wgmma .tf32 on split operands
+// ---------------------------------------------------------------------------
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory of a block
+// setmaxnreg with two consumer warpgroups: the block holds 168 registers a
+// thread from its launch, 64,512 in all, and moves them from the producer
+// to the consumers (136 * 128 + 184 * 256 = 64,512); an increase the pool
+// cannot grant waits forever.  The producer's address arithmetic needs the
+// 136: at 104 and 72 it spilled, and the kernel ran 1.29x and 1.60x slower
+// at [1, 32/8, 2,048, 128] (tools/flash_f32_probe.py)
+constexpr int TF32_PRODUCER_REGS = 136;
+constexpr int TF32_CONSUMER_REGS = 184;
+
+// Q rows in shared memory: D + 4 floats apart, so that lanes (g, t) reading
+// column t of row g hit 32 distinct banks
+__host__ __device__ constexpr int tf32_ldq(int d) { return d + 4; }
+
+// bytes of one K/V stage: K hi, K lo, V^T hi, V^T lo, each [BK x D] float32
+__host__ __device__ constexpr size_t tf32_stage_bytes(int bk, int d) {
+  return 16 * static_cast<size_t>(bk) * d;
+}
+
+__host__ __device__ constexpr size_t tf32_smem_with(int bq, int bk, int d, int stages) {
+  return stages * tf32_stage_bytes(bk, d) +
+         4 * static_cast<size_t>(bq) * tf32_ldq(d) + SMEM_ALIGN + BARRIER_BYTES;
+}
+
+// the K/V ring: two stages where they fit beside the Q tile, else one
+__host__ __device__ constexpr int tf32_stages(int bq, int bk, int d) {
+  return tf32_smem_with(bq, bk, d, 2) <= SMEM_LIMIT ? 2 : 1;
+}
+
+// bytes of dynamic shared memory: the K/V ring, the raw Q tile, the
+// barriers, and room to align the ring to 1 KB
+constexpr size_t tf32_smem_bytes(int bq, int bk, int d) {
+  return tf32_smem_with(bq, bk, d, tf32_stages(bq, bk, d));
+}
+
+// mbar_wait that traps after 2^22 polls: a broken invariant fails the
+// launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 22)) asm volatile("trap;");
+  }
+}
+
+// byte offset `off` within a tile, as the wgmma swizzle of WIDTH-byte rows
+// places it (128: Swizzle<3,4,3>, 64: Swizzle<2,4,3>: the 16-byte chunk
+// index XOR the row's low bits); the tile starts on a 1 KB boundary
+template <int WIDTH>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  constexpr uint32_t MASK = WIDTH == 128 ? 7 : 3;
+  return off ^ (((off >> 7) & MASK) << 4);
+}
+
+// x = hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds (to
+// nearest, ties away from zero: add half of TF32's last place to the bits,
+// then clear the 13 bits below it), lo = x - hi, exact in float32.  The
+// tensor cores read the top 19 bits of a .tf32 operand, so lo enters its
+// products truncated to TF32 (CUTLASS's 3xTF32 rounds its small part the
+// same way).  cvt.rna itself lowers to the same add plus a guard for Inf and
+// NaN (FSETP, SEL) that the split does not need.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// D[64 x 16] (+)= A[64 x 8] B[8 x 16] in TF32, A from registers, B from
+// shared memory (K-major)
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32] in TF32, A from registers, B from
+// shared memory (K-major)
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32, A from registers, B from
+// shared memory (K-major)
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in TF32, A from registers, B from
+// shared memory (K-major)
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A[64 x 8] B[8 x 256] in TF32, A from registers, B from
+// shared memory (K-major)
+__device__ __forceinline__ void wgmma_tf32_n256(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256, "N");
+  if constexpr (N == 16) wgmma_tf32_n16(d, a, db, accumulate);
+  else if constexpr (N == 32) wgmma_tf32_n32(d, a, db, accumulate);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, a, db, accumulate);
+  else if constexpr (N == 128) wgmma_tf32_n128(d, a, db, accumulate);
+  else wgmma_tf32_n256(d, a, db, accumulate);
+}
+
+// the key of position p (0..7) of an 8-key block of V^T: P's A fragment
+// holds keys (2t, 2t + 1) of lane t as its k = t and k = t + 4
+__device__ __forceinline__ int vt_position(int key) {
+  const int r = key % 8;
+  return key - r + (r % 2 ? 4 + r / 2 : r / 2);
+}
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(BQ / 64 * 128 + 128, 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S,
+                  int Hq, int Hkv, int causal, int window, float scale) {
+  constexpr int NWG = BQ / 64;                 // consumer warpgroups
+  constexpr int STG = tf32_stages(BQ, BK, D);
+  constexpr int LDQ = tf32_ldq(D);
+  constexpr int KW = D < 32 ? 64 : 128;        // K's swizzle row, bytes
+  constexpr int KCOLS = KW / 4;                // floats in a K swizzle row
+  constexpr int TILE = BK * D;                 // floats of one split tile
+  constexpr int PIECES = TILE / 4 / 128;       // float4 of K (and V) a producer thread
+  constexpr int BATCH = PIECES < 4 ? PIECES : 4;
+
+  // [STG x (K hi, K lo, V^T hi, V^T lo)][Q: BQ x LDQ][barriers]
+  extern __shared__ uint8_t smem_raw[];
+  const uintptr_t base =
+      (reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
+      ~static_cast<uintptr_t>(SMEM_ALIGN - 1);
+  auto* ring = reinterpret_cast<float*>(base);
+  float* qs = ring + STG * 4 * TILE;
+  auto* q_full = reinterpret_cast<uint64_t*>(qs + BQ * LDQ);
+  uint64_t* full = q_full + 1;                 // [STG] each
+  uint64_t* empty = full + STG;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y;                   // b * Hq + qh
+  const int b = bh / Hq, qh = bh % Hq;
+  const size_t q_base = static_cast<size_t>(bh) * S * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + qh / (Hq / Hkv)) * S * D;
+  const int n_tiles = (S + BK - 1) / BK;
+  const int kt_end = causal ? min(n_tiles, (q0 + BQ + BK - 1) / BK) : n_tiles;
+  const int kt_begin =
+      window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
+  const int n_visit = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 128);
+    for (int s = 0; s < STG; ++s) {
+      mbar_init(&full[s], 128);                // every producer thread
+      mbar_init(&empty[s], NWG * 4);           // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= NWG * 4) {
+    // ---- producer: loads Q once, then splits each K and V tile into the
+    // ring: K hi / lo as [BK rows][D] and V hi / lo transposed, [D rows][BK
+    // keys] in vt_position order, both K-major in the swizzle wgmma reads ----
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(TF32_PRODUCER_REGS));
+    const int tid = threadIdx.x - NWG * 128;
+    for (int p = tid; p < BQ * D / 4; p += 128) {
+      const int r = p / (D / 4), c = p % (D / 4) * 4;
+      const float4 x = q0 + r < S
+          ? __ldg(reinterpret_cast<const float4*>(q + q_base + static_cast<size_t>(q0 + r) * D + c))
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(qs + r * LDQ + c) = x;
+    }
+    mbar_arrive(q_full);
+    for (int i = 0; i < n_visit; ++i) {
+      const int st = i % STG;
+      const int k0 = (kt_begin + i) * BK;
+      const uint32_t kh = smem_u32(ring + st * 4 * TILE);
+      const uint32_t kl = kh + 4 * TILE, vh = kl + 4 * TILE, vl = vh + 4 * TILE;
+      mbar_wait_or_trap(&empty[st], ((i / STG) & 1) ^ 1);
+      // BATCH pieces of K and of V in flight at a time.  K: a warp takes 16-
+      // byte pieces of consecutive columns of a row, stored whole.  V: a warp
+      // takes 8 keys by 4 pieces of 4 columns, so that its transposed 4-byte
+      // stores spread over the banks
+#pragma unroll
+      for (int u0 = 0; u0 < PIECES; u0 += BATCH) {
+        float4 xk[BATCH], xv[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int p = tid + 128 * (u0 + u);
+          const int rk = p / (D / 4), ck = p % (D / 4) * 4;
+          const int rv = p / (2 * D) * 8 + p % 8, cv = p / 8 % (D / 4) * 4;
+          xk[u] = k0 + rk < S
+              ? __ldg(reinterpret_cast<const float4*>(k + kv_base + static_cast<size_t>(k0 + rk) * D + ck))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+          xv[u] = k0 + rv < S
+              ? __ldg(reinterpret_cast<const float4*>(v + kv_base + static_cast<size_t>(k0 + rv) * D + cv))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int p = tid + 128 * (u0 + u);
+          const int rk = p / (D / 4), ck = p % (D / 4) * 4;
+          const int rv = p / (2 * D) * 8 + p % 8, cv = p / 8 % (D / 4) * 4;
+          uint4 hi, lo;
+          split_tf32(xk[u], hi, lo);
+          const uint32_t off = swizzle<KW>(ck / KCOLS * (BK * KW) + rk * KW + ck % KCOLS * 4);
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                       :: "r"(kh + off), "r"(hi.x), "r"(hi.y), "r"(hi.z), "r"(hi.w) : "memory");
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                       :: "r"(kl + off), "r"(lo.x), "r"(lo.y), "r"(lo.z), "r"(lo.w) : "memory");
+          split_tf32(xv[u], hi, lo);
+          // lanes whose pieces lie 8 columns apart write their columns in
+          // orders 2 apart, so that the 32 stores of a warp hit 32 banks
+          const bool turn = cv & 8;
+          const uint32_t h[4] = {turn ? hi.z : hi.x, turn ? hi.w : hi.y,
+                                 turn ? hi.x : hi.z, turn ? hi.y : hi.w};
+          const uint32_t l[4] = {turn ? lo.z : lo.x, turn ? lo.w : lo.y,
+                                 turn ? lo.x : lo.z, turn ? lo.y : lo.w};
+          const int col = vt_position(rv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = cv + (turn ? (e + 2) % 4 : e);
+            const uint32_t at = swizzle<128>(col / 32 * (D * 128) + row * 128 + col % 32 * 4);
+            asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(vh + at), "r"(h[e]) : "memory");
+            asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(vl + at), "r"(l[e]) : "memory");
+          }
+        }
+      }
+      // the stores are read by wgmma, through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full[st]);
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(TF32_CONSUMER_REGS));
+    const int wg = warp / 4;
+    const int row_lo = q0 + 64 * wg;
+    const int g = lane / 4, t = lane % 4;
+    const int qi0 = row_lo + 16 * (warp % 4) + g;
+    const float* q_lane = qs + (qi0 - q0) * LDQ + t;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+
+    mbar_wait_or_trap(q_full, 0);
+    for (int i = 0; i < n_visit; ++i) {
+      const int st = i % STG;
+      const int k0 = (kt_begin + i) * BK;
+      mbar_wait_or_trap(&full[st], (i / STG) & 1);
+      const float* kh = ring + st * 4 * TILE;
+      const float* kl = kh + TILE;
+      const float* vh = kl + TILE;
+      const float* vl = vh + TILE;
+      // a tile whose keys all lie above the diagonal or below the window
+      // for all 64 rows changes none of the warpgroup's sums
+      const bool skip = (causal && k0 > row_lo + 63) ||
+                        (window > 0 && k0 + BK - 1 <= row_lo - window);
+      if (!skip) {
+        // S = (q * scale) K^T: D / 8 k8 steps, three products each; the A
+        // fragments of two steps at a time, in two register sets
+        float s[BK / 2];
+        uint32_t ah[2][2][4], al[2][2][4];     // [set][step][a0..a3]
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const int set = c % 2;
+          if (c >= 2) {
+            wgmma_wait<1>();                   // the set's last products are done
+            fence_regs(s);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float* qp = q_lane + 16 * c + 8 * h;
+            split_tf32(qp[0] * scale, ah[set][h][0], al[set][h][0]);
+            split_tf32(qp[8 * LDQ] * scale, ah[set][h][1], al[set][h][1]);
+            split_tf32(qp[4] * scale, ah[set][h][2], al[set][h][2]);
+            split_tf32(qp[8 * LDQ + 4] * scale, ah[set][h][3], al[set][h][3]);
+          }
+          fence_regs(s);
+          wgmma_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kk = 2 * c + h;
+            const int at = kk * 8 / KCOLS * (BK * KCOLS) + kk * 8 % KCOLS;
+            const uint64_t dh = smem_desc(kh + at, 16, 8 * KW, KW == 128 ? 1 : 2);
+            const uint64_t dl = smem_desc(kl + at, 16, 8 * KW, KW == 128 ? 1 : 2);
+            wgmma_tf32<BK>(s, al[set][h], dh, kk > 0);
+            wgmma_tf32<BK>(s, ah[set][h], dl, 1);
+            wgmma_tf32<BK>(s, ah[set][h], dh, 1);
+          }
+          wgmma_commit();
+          fence_regs(s);
+        }
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > row_lo) ||
+                          (window > 0 && k0 <= row_lo + 63 - window);
+        softmax_tile<BK>(s, m, l, alpha, edge, k0, qi0, 2 * t, S, causal,
+                         window, 1.4426950408889634f);
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+
+        // O += P V: BK / 8 k8 steps; the S fragment of 8 keys is the A
+        // fragment of its step with keys (2t, 2t + 1) as k = (t, t + 4)
+        uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          split_tf32(s[4 * j], ph[j][0], pl[j][0]);
+          split_tf32(s[4 * j + 2], ph[j][1], pl[j][1]);
+          split_tf32(s[4 * j + 1], ph[j][2], pl[j][2]);
+          split_tf32(s[4 * j + 3], ph[j][3], pl[j][3]);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const int at = j * 8 / 32 * (D * 32) + j * 8 % 32;
+          const uint64_t dh = smem_desc(vh + at, 16, 1024, 1);
+          const uint64_t dl = smem_desc(vl + at, 16, 1024, 1);
+          wgmma_tf32<D>(acc, pl[j], dh, 1);
+          wgmma_tf32<D>(acc, ph[j], dl, 1);
+          wgmma_tf32<D>(acc, ph[j], dh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      den[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int r = (j >> 1) & 1;
+      const int qi = qi0 + 8 * r;
+      if (qi < S)
+        *reinterpret_cast<float2*>(o + q_base + static_cast<size_t>(qi) * D +
+                                   8 * (j / 4) + 2 * t) =
+            make_float2(acc[j] / den[r], acc[j + 1] / den[r]);
+    }
+  }
+}
+
+// every (head width, block_q, block_k) the float32 kernel is built for:
+// block_q in {64, 128}, block_k in {32, 64}, where the ring (two stages, else
+// one) and the Q tile fit shared memory and the consumers' accumulators,
+// P's fragments and two sets of Q's fit their registers (not 128 x 64 at D
+// = 128, where they would take ~220 of 208)
+#define TF32_INSTANCES(X)                                            \
+  X(16, 64, 32) X(16, 64, 64) X(16, 128, 32) X(16, 128, 64)          \
+  X(32, 64, 32) X(32, 64, 64) X(32, 128, 32) X(32, 128, 64)          \
+  X(64, 64, 32) X(64, 64, 64) X(64, 128, 32) X(64, 128, 64)          \
+  X(128, 64, 32) X(128, 64, 64) X(128, 128, 32) X(256, 64, 32)
+
+bool tf32_instance(int d, int bq, int bk) {
+#define X(D_, BQ_, BK_) if (d == D_ && bq == BQ_ && bk == BK_) return true;
+  TF32_INSTANCES(X)
+#undef X
+  return false;
+}
+
+template <int D, int BQ, int BK>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B,
+                int Hq, int Hkv, int S, int causal, int window, float scale,
+                cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem_bytes(BQ, BK, D);
+  static_assert(smem <= SMEM_LIMIT, "the tiles exceed shared memory");
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_tf32_kernel<D, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const dim3 grid((S + BQ - 1) / BQ, B * Hq);
+  flash_tf32_kernel<D, BQ, BK><<<grid, BQ / 64 * 128 + 128, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // every (head width, block_q, block_k) the bf16 kernel is built for: block_q
 // and block_k in {64, 128} where the tiles fit (not D = 256 with block_k 128)
 #define WGMMA_INSTANCES(X)                                           \
@@ -924,19 +1217,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 128, 128)    \
   X(256, 64, 64) X(256, 128, 64)
 
-#define SCALAR_DIMS(X) X(16) X(32) X(64) X(128) X(256)
-
 bool wgmma_instance(int d, int bq, int bk) {
 #define X(D_, BQ_, BK_) if (d == D_ && bq == BQ_ && bk == BK_) return true;
   WGMMA_INSTANCES(X)
-#undef X
-  return false;
-}
-
-bool scalar_instance(int d, int bk) {
-  if (bk != 32 && bk != 64 && bk != 128) return false;
-#define X(D_) if (d == D_) return true;
-  SCALAR_DIMS(X)
 #undef X
   return false;
 }
@@ -945,11 +1228,11 @@ bool scalar_instance(int d, int bk) {
 
 extern "C" {
 
-// threads of one block (bf16: the consumer warpgroups and the producer
-// warp), or -1 where no kernel is built for the point
+// threads of one block (the consumer warpgroups and the producer
+// warpgroup), or -1 where no kernel is built for the point
 int flash_attention_threads(int block_q, int block_k, int d, int bf16) {
   if (bf16) return wgmma_instance(d, block_q, block_k) ? wgmma_threads(block_q) : -1;
-  return scalar_instance(d, block_k) ? block_q / ROWS * threads_per_row(d) : -1;
+  return tf32_instance(d, block_q, block_k) ? wgmma_threads(block_q) : -1;
 }
 
 // dynamic shared memory of one block, or -1 where no kernel is built
@@ -958,16 +1241,19 @@ long long flash_attention_smem_bytes(int block_q, int block_k, int d, int bf16) 
     return wgmma_instance(d, block_q, block_k)
                ? static_cast<long long>(wgmma_smem_bytes(block_q, block_k, d))
                : -1;
-  return scalar_instance(d, block_k)
-             ? static_cast<long long>(scalar_smem_bytes(block_q, block_k, d))
-             : -1;
+  if (!tf32_instance(d, block_q, block_k)) return -1;
+#define X(D_, BQ_, BK_)                                         \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)              \
+    return static_cast<long long>(tf32_smem_bytes(BQ_, BK_, D_));
+  TF32_INSTANCES(X)
+#undef X
+  return -1;
 }
 
 // q, o: contiguous [B, Hq, S, D]; k, v: contiguous [B, Hkv, S, D]; all of
 // one type (bf16 when bf16 != 0, else float32), 16-byte aligned.
-// bf16: (d, block_q, block_k) one of WGMMA_INSTANCES.  float32: block_q in
-// {32, 64, 128} (at most 64 at d = 256: 4 * block_q threads), block_k in
-// {32, 64, 128}, d in {16, 32, 64, 128, 256}.
+// bf16: (d, block_q, block_k) one of WGMMA_INSTANCES, float32 one of
+// TF32_INSTANCES.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Hq, int Hkv, int S, int d,
                            int block_q, int block_k, int causal, int window,
@@ -982,18 +1268,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 #undef X
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define X(D_)                                                                 \
-  if (d == D_) {                                                              \
-    switch (block_k) {                                                        \
-      case 32: return launch_scalar<32, D_>(q, k, v, o, B, Hq, Hkv, S,        \
-                                            block_q, causal, window, scale, s); \
-      case 64: return launch_scalar<64, D_>(q, k, v, o, B, Hq, Hkv, S,        \
-                                            block_q, causal, window, scale, s); \
-      case 128: return launch_scalar<128, D_>(q, k, v, o, B, Hq, Hkv, S,      \
-                                              block_q, causal, window, scale, s); \
-    }                                                                         \
-  }
-  SCALAR_DIMS(X)
+#define X(D_, BQ_, BK_)                                                   \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)                        \
+    return launch_tf32<D_, BQ_, BK_>(q, k, v, o, B, Hq, Hkv, S, causal,   \
+                                     window, scale, s);
+  TF32_INSTANCES(X)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1011,13 +1290,10 @@ int flash_attention_attributes(int block_q, int block_k, int d, int bf16,
     WGMMA_INSTANCES(X)
 #undef X
   } else {
-#define X(D_)                                                                 \
-    if (d == D_) {                                                            \
-      if (block_k == 32) e = cudaFuncGetAttributes(&a, flash_kernel<32, D_>); \
-      if (block_k == 64) e = cudaFuncGetAttributes(&a, flash_kernel<64, D_>); \
-      if (block_k == 128) e = cudaFuncGetAttributes(&a, flash_kernel<128, D_>); \
-    }
-    SCALAR_DIMS(X)
+#define X(D_, BQ_, BK_)                                   \
+    if (d == D_ && block_q == BQ_ && block_k == BK_)      \
+      e = cudaFuncGetAttributes(&a, flash_tf32_kernel<D_, BQ_, BK_>);
+    TF32_INSTANCES(X)
 #undef X
   }
   if (e != cudaSuccess) return static_cast<int>(e);

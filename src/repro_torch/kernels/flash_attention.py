@@ -8,7 +8,11 @@ back.  ``block_q`` / ``block_k`` are the kernel's tile sizes; S need not be
 a multiple of either (the kernel masks its ragged last tiles).  One C entry
 point serves two bodies: bf16 runs on the tensor cores (``wgmma`` fed by
 TMA, tiles kept bf16 in shared memory, ``block_q`` and ``block_k`` in
-{64, 128}); float32 runs scalar FP32 FMAs over float32 tiles.
+{64, 128}); float32 runs on them too, as split-TF32 (3xTF32) ``wgmma``
+products: each operand is cut into a TF32 high and low part and a.b is
+taken as hi.hi + hi.lo + lo.hi in float32 (the producer warpgroup splits
+K and V, transposed, into shared memory; the consumers split Q and P in
+registers), ``block_q`` in {64, 128} and ``block_k`` in {32, 64}.
 """
 from __future__ import annotations
 
@@ -28,15 +32,19 @@ HEAD_DIMS = (16, 32, 64, 128, 256)   # head widths the source instantiates
 WGMMA_BLOCK_QS = (64, 128)       # bf16: one consumer warpgroup per 64 rows
 WGMMA_BLOCK_KS = (64, 128)       # bf16: the S = Q K^T product's width
 STAGES = 2                       # bf16: K/V tiles in the shared-memory ring
-MAX_THREADS = 256                # float32 body
 # the best bf16 point at [1, 32/8, 2,048, 128] (chip_smoke.py phase 3); a
 # call without tiles takes default_tiles(dtype, head_dim)
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-_PAD = 4                         # float32: floats of padding per row
-_ALIGN = 1024                    # bf16: room to align the tiles to 1 KB
-_BARRIERS = 128                  # bf16: the ring's mbarriers
-_PRODUCER = 128                  # bf16: the producer warpgroup
+# float32: the (head_dim, block_q, block_k) points csrc builds
+# (TF32_INSTANCES): block_k 32 or 64 where the K/V ring and the Q tile fit
+# shared memory and the consumers' registers (not 128 x 64 at head_dim 128)
+F32_POINTS = frozenset(
+    [(d, bq, bk) for d in (16, 32, 64) for bq in (64, 128) for bk in (32, 64)]
+    + [(128, 64, 32), (128, 64, 64), (128, 128, 32), (256, 64, 32)])
+_ALIGN = 1024                    # room to align the tiles to 1 KB
+_BARRIERS = 128                  # the ring's mbarriers
+_PRODUCER = 128                  # the producer warpgroup
 
 
 def _bf16(dtype) -> bool:
@@ -48,36 +56,35 @@ def _bf16(dtype) -> bool:
 def smem_bytes(block_q: int, block_k: int, head_dim: int, dtype) -> int:
     """Dynamic shared memory of one block.  bf16: the Q tile and STAGES K
     and V tiles, all bf16, the barriers and 1 KB of alignment room.
-    float32: the q tile [block_q, D + 4], k and v tiles [block_k, D + 4]
-    and the probabilities [block_q, block_k + 1], all float32."""
+    float32: a ring of two K/V stages where it fits (else one), each the
+    hi and lo parts of K and of V transposed, [block_k x D] float32 each;
+    the raw Q tile with rows D + 4 floats apart; the same barriers and
+    alignment room."""
     if _bf16(dtype):
         return (2 * head_dim * (block_q + 2 * STAGES * block_k) + _ALIGN
                 + _BARRIERS)
-    ld = head_dim + _PAD
-    return 4 * (block_q * ld + 2 * block_k * ld + block_q * (block_k + 1))
+    rest = 4 * block_q * (head_dim + 4) + _ALIGN + _BARRIERS
+    stage = 16 * block_k * head_dim
+    return (2 * stage if 2 * stage + rest <= SMEM_PER_BLOCK else stage) + rest
 
 
 def threads(block_q: int, head_dim: int, dtype) -> int:
-    """Threads of one block.  bf16: a warpgroup (128) per 64 query rows and
-    the producer warpgroup.  float32: 4 query rows per thread, 8 threads per
-    row group (16 at head_dim 256, where 8 would need 128 accumulators)."""
-    if _bf16(dtype):
-        return block_q // 64 * 128 + _PRODUCER
-    return block_q // 4 * (16 if head_dim >= 256 else 8)
+    """Threads of one block, either type: a warpgroup (128) per 64 query
+    rows and the producer warpgroup."""
+    _bf16(dtype)                 # raises for another type
+    return block_q // 64 * 128 + _PRODUCER
 
 
 def fits(block_q: int, block_k: int, head_dim: int, dtype) -> bool:
     """Whether the source instantiates the point for this type and head
-    width and the block fits Hopper's shared memory (and, float32, the
-    kernel's thread limit)."""
+    width and the block fits Hopper's shared memory."""
     if head_dim not in HEAD_DIMS or block_k not in BLOCK_KS:
         return False
     if _bf16(dtype):
         return (block_q in WGMMA_BLOCK_QS and block_k in WGMMA_BLOCK_KS
                 and smem_bytes(block_q, block_k, head_dim, dtype)
                 <= SMEM_PER_BLOCK)
-    return (block_q in BLOCK_QS
-            and threads(block_q, head_dim, dtype) <= MAX_THREADS
+    return ((head_dim, block_q, block_k) in F32_POINTS
             and smem_bytes(block_q, block_k, head_dim, dtype)
             <= SMEM_PER_BLOCK)
 
@@ -86,7 +93,8 @@ def default_tiles(dtype, head_dim: int) -> tuple[int, int]:
     """(block_q, block_k) of a call that names none: the defaults where
     they fit (or where nothing does), else the fitting point with the
     largest tile, the larger block_q first — (128, 64) for bf16 at
-    head_dim 256, (128, 64) and (64, 64) for float32 at 128 and 256."""
+    head_dim 256; for float32 (128, 64) up to head_dim 64, (128, 32) at
+    128 and (64, 32) at 256."""
     ok = [(bq, bk) for bq, bk in itertools.product(BLOCK_QS, BLOCK_KS)
           if fits(bq, bk, head_dim, dtype)]
     if not ok or (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K) in ok:
@@ -136,16 +144,14 @@ def _lib() -> ctypes.CDLL:
         "flash_attention_threads": (i, (i, i, i, i)),
     })
     # every point the tuning space may propose: the C figures equal the
-    # Python ones, and the bf16 instances are exactly the fitting points
+    # Python ones, and the kernels run exactly the fitting points
     for dtype, d, bq, bk in itertools.product(
             (torch.bfloat16, torch.float32), HEAD_DIMS, BLOCK_QS, BLOCK_KS):
         flag = int(dtype == torch.bfloat16)
         c = (lib.flash_attention_smem_bytes(bq, bk, d, flag),
              lib.flash_attention_threads(bq, bk, d, flag))
-        if fits(bq, bk, d, dtype):
-            agree = c == (smem_bytes(bq, bk, d, dtype), threads(bq, d, dtype))
-        else:
-            agree = not flag or c == (-1, -1)
+        agree = c == ((smem_bytes(bq, bk, d, dtype), threads(bq, d, dtype))
+                      if fits(bq, bk, d, dtype) else (-1, -1))
         if not agree:
             raise RuntimeError(
                 f"csrc/flash_attention.cu and kernels/flash_attention.py "
@@ -209,8 +215,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention: head_dim {d} with block_q={block_q}, block_k="
             f"{block_k} in {q.dtype} exceeds the kernel's limits (head_dim in "
             f"{HEAD_DIMS}; bf16: block_q in {WGMMA_BLOCK_QS}, block_k in "
-            f"{WGMMA_BLOCK_KS}; float32: at most {MAX_THREADS} threads; "
-            f"shared memory <= {SMEM_PER_BLOCK} B)")
+            f"{WGMMA_BLOCK_KS}; float32: (head_dim, block_q, block_k) in "
+            f"F32_POINTS; shared memory <= {SMEM_PER_BLOCK} B)")
     if b * hq > 65_535 or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: B * Hq > 65,535 or a pointer not "
                          "16-byte aligned")

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 PEAK_FLOPS_BF16 = 989e12        # tensor cores, dense bf16 flop/s
 PEAK_FLOPS_FP32 = 67e12         # float32 flop/s outside the tensor cores
+PEAK_FLOPS_TF32 = 495e12        # tensor cores, dense TF32 flop/s
 HBM_BW = 3.35e12                # HBM3 bytes/s
 HBM_BYTES = 80 * 1024**3        # device memory
 # the special-function units retire 16 sines/cosines/exps per clock per SM

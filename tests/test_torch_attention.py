@@ -133,11 +133,14 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(bad):
 # bf16: the wgmma body's points (block_q and block_k in {64, 128}), all
 # within shared memory at head_dim 128 (the largest, 128 x 128, is 164,992
 # B: Q 32 KB and two stages of K and V, 128 KB, in bf16); float32: the
-# scalar body's nine points but 128 x 128 (269 KB of float32 tiles)
+# split-TF32 wgmma body's 64 x 32, 64 x 64 and 128 x 32 (block_k 128 would
+# need 256 KB a stage; 128 x 64 more registers than a consumer has)
 @pytest.mark.parametrize("dtype,n_points,missing", [
     (torch.bfloat16, 4, [{"block_q": 32, "block_k": 64},
                          {"block_q": 64, "block_k": 32}]),
-    (torch.float32, 8, [{"block_q": 128, "block_k": 128}]),
+    (torch.float32, 3, [{"block_q": 128, "block_k": 128},
+                        {"block_q": 128, "block_k": 64},
+                        {"block_q": 32, "block_k": 32}]),
 ])
 def test_flash_tuning_space_fits_hopper_shared_memory(dtype, n_points,
                                                       missing):

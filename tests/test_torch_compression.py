@@ -4,8 +4,6 @@ feedback unbiased over 50 steps and convergence parity (the tolerances of
 tests/test_substrates.py), and on 4 gloo ranks ``compressed_psum`` equal
 to the sum of the JAX-quantized payloads times the largest JAX scale."""
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -19,8 +17,9 @@ from hypothesis import strategies as st
 from repro.optim import compression as JC
 from repro_torch.optim import compression as C
 
-REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("torch_mesh_worker.py")
+sys.path.insert(0, str(WORKER.parent))
+from torch_mesh_worker import run_job  # noqa: E402
 
 
 @settings(max_examples=40, deadline=None)
@@ -86,11 +85,7 @@ def ranks(tmp_path_factory):
         np.array([1.0, 3.0, 0.1, 10.0], np.float32)[:, None]
     errors = (rng.standard_normal((4, 48)) * 0.01).astype(np.float32)
     np.savez(out / "compression_in.npz", grads=grads, errors=errors)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, str(WORKER), "compression",
-                           str(out)], env=env, capture_output=True,
-                          text=True, timeout=300, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    run_job("compression", out)
     return grads, errors, json.loads((out / "compression.json").read_text())
 
 

@@ -45,6 +45,17 @@ def test_the_published_h100_figures():
     assert p["bound"] == "transcendental"
 
 
+def test_the_tf32_peak_is_the_data_sheets_and_bounds_the_float32_flash():
+    """Dense TF32 at 495 TFLOP/s; the float32 flash runs each product as
+    three TF32 ones, so chip_smoke.py's bound for it reads this figure."""
+    assert TC.PEAK_FLOPS_TF32 == 495e12
+    assert TC.PEAK_FLOPS_FP32 < TC.PEAK_FLOPS_TF32 / 3 < TC.PEAK_FLOPS_BF16
+    assert "PEAK_FLOPS_TF32" in _imports_from_constants(ROOT / "chip_smoke.py")
+    assert not re.search(r"\b495(\.0)?e12\b", "\n".join(
+        line for line in (ROOT / "chip_smoke.py").read_text().splitlines()
+        if not line.lstrip().startswith("#")))
+
+
 def test_the_readers_take_their_figures_from_the_module():
     assert TCM.ACCEL_FLOPS == TC.PEAK_FLOPS_BF16
     assert TCM.ACCEL_BW == TC.HBM_BW

@@ -175,6 +175,40 @@ def test_flash_bf16_every_tile_point_on_cuda(cuda_device, d, s, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)],
+                         ids=["causal", "window48", "bidirectional"])
+@pytest.mark.parametrize("s", [8, 300, 2080])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_f32_every_tile_point_on_cuda(cuda_device, d, s, causal, window):
+    """The split-TF32 wgmma body at every tile point the float32 tuning
+    space admits at this head width, within the float32 tolerance of the
+    plain version: S below one tile, ragged, and the largest bucket; GQA
+    5:1; causal, windowed and bidirectional.  A point the body is not built
+    for raises."""
+    rng = np.random.default_rng(d + s + window + causal)
+    q = _normal(rng, (1, 5, s, d), torch.float32, cuda_device)
+    k = _normal(rng, (1, 1, s, d), torch.float32, cuda_device)
+    v = _normal(rng, (1, 1, s, d), torch.float32, cuda_device)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    points = [(bq, bk) for bq in FA.BLOCK_QS for bk in FA.BLOCK_KS
+              if FA.fits(bq, bk, d, torch.float32)]
+    assert len(points) == {16: 4, 64: 4, 128: 3, 256: 1}[d]
+    for bq, bk in points:
+        before = FA.flash_attention.launches
+        got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                 block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL[torch.float32],
+                                   atol=ATTN_TOL[torch.float32],
+                                   msg=lambda m: f"{bq}x{bk}: {m}")
+    for bq, bk in [(32, 32), (128, 128)]:
+        with pytest.raises(ValueError):
+            FA.flash_attention(q, k, v, causal=causal, window=window,
+                               block_q=bq, block_k=bk)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 128, 256])
 def test_flash_bf16_bidirectional_on_cuda(cuda_device, d):
     rng = np.random.default_rng(d)
@@ -369,7 +403,7 @@ def test_flash_kernel_at_head_dim_256_on_cuda(cuda_device, s, dtype, window,
     want = FA.flash_attention_plain(q, k, v, window=window)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    with pytest.raises(ValueError):   # bf16: no block_k 32; f32: 512 threads
+    with pytest.raises(ValueError):   # bf16: no block_k 32; f32: 270 KB
         FA.flash_attention(q, k, v, block_q=128, block_k=32)
 
 

@@ -13,9 +13,11 @@ mirroring tests/test_faults.py's intent on a two-region toy program whose
 
 Waits are injected sleeps with wide margins (a hang of seconds against a
 timeout well below it and a build of milliseconds); no test compares two
-wall-clock times.
+wall-clock times.  The tests that assert which pattern a search selects
+time it on ``CostClock``, which only the toy's calls move.
 """
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -46,15 +48,53 @@ from repro_torch.core.regions import (Impl, dispatch, register_variant,
 A, B = "tfaults_a", "tfaults_b"
 
 
+class CostClock:
+    """A host clock that moves only when the toy's regions run, by a fixed
+    cost a call: a loop-faithful ref 1 s, an offload 1 ms.  Patched into
+    the search module by the ``cost_clock`` fixture, it makes a timed search
+    pick by these costs and not by the machine's load; elsewhere nothing
+    reads it."""
+    REF_S, OFFLOAD_S = 1.0, 1e-3
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+
+CLOCK = CostClock()
+
+
 def _slow_ref(x):
+    CLOCK.now += CostClock.REF_S
     return fori_loop(0, 400, lambda i, acc: acc + 1e-6 * torch.sin(
         acc * 1e-3), x)
 
 
+def _offload_a(x):
+    CLOCK.now += CostClock.OFFLOAD_S
+    return x * 1.0000001
+
+
+def _offload_b(x):
+    CLOCK.now += CostClock.OFFLOAD_S
+    return x - 1e-7
+
+
 if not variants(A):
-    for name, off in ((A, lambda x: x * 1.0000001), (B, lambda x: x - 1e-7)):
+    for name, off in ((A, _offload_a), (B, _offload_b)):
         register_variant(name, "ref")(_slow_ref)
         register_variant(name, "offload")(off)
+
+
+@pytest.fixture
+def cost_clock(monkeypatch):
+    """The search module's host clock is ``CLOCK``: each timed call of a
+    pattern lasts the sum of its regions' costs."""
+    monkeypatch.setattr(TS, "time", types.SimpleNamespace(
+        perf_counter=CLOCK.perf_counter))
+    return CLOCK
 
 
 def _toy_program() -> OffloadableProgram:
@@ -282,7 +322,7 @@ def test_plan_same_winner_under_transient_faults(workers):
     assert "attempts]" in faulted.summary()
 
 
-def test_nan_gene_quarantined_persisted_and_skipped(tmp_path):
+def test_nan_gene_quarantined_persisted_and_skipped(tmp_path, cost_clock):
     prog = _toy_program()
     gene = f"{A}=offload"
     inj = FaultInjector(specs=[FaultSpec("nan", site="run", match=gene,
@@ -308,7 +348,7 @@ def test_nan_gene_quarantined_persisted_and_skipped(tmp_path):
     assert inj.fired() == fired
 
 
-def test_preloaded_quarantine_filters_proposals():
+def test_preloaded_quarantine_filters_proposals(cost_clock):
     off = AutoOffloader(_cfg(quarantine_threshold=1))
     off.quarantine.record_failure({A: "offload"}, "known bad")
     assert off.quarantine.strikes() == {f"{A}=offload": 1}

@@ -4,27 +4,20 @@ arch a family: hybrid, dense, MoE, SSM, VLM, audio): one train step
 step on the trained parameters, held against the same steps without the
 mesh.  One spawn of tests/torch_mesh_worker.py runs them all."""
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("torch_mesh_worker.py")
 sys.path.insert(0, str(WORKER.parent))
-from torch_mesh_worker import FAMILY_ARCHS  # noqa: E402
+from torch_mesh_worker import FAMILY_ARCHS, run_job  # noqa: E402
 
 
 @pytest.fixture(scope="module")
 def families(tmp_path_factory):
     out = tmp_path_factory.mktemp("families")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, str(WORKER), "families", str(out)],
-                          env=env, capture_output=True, text=True,
-                          timeout=600, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    run_job("families", out)
     return json.loads((out / "families.json").read_text())
 
 

@@ -12,8 +12,6 @@ All of it runs in one spawn of 4 ranks (tests/torch_mesh_worker.py), each
 process group and the spawn itself with a time limit.
 """
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -26,8 +24,9 @@ from repro.checkpoint.manager import CheckpointManager as JaxCheckpoints
 from repro.configs import get_config as jax_get_config
 from repro.runtime import steps as JRS
 
-REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("torch_mesh_worker.py")
+sys.path.insert(0, str(WORKER.parent))
+from torch_mesh_worker import run_job  # noqa: E402
 
 L, D, B = 8, 16, 8
 # the 1x1 mesh against no mesh: bit for bit (the same local ops)
@@ -47,11 +46,7 @@ def run(tmp_path_factory):
     jstate = JRS.init_train_state(jax_get_config("qwen2-72b").reduced(),
                                   jax.random.PRNGKey(7))
     JaxCheckpoints(str(out / "ckpt")).save(3, jstate)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, str(WORKER), "parallel", str(out)],
-                          env=env, capture_output=True, text=True,
-                          timeout=600, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    run_job("parallel", out)
     return out
 
 

@@ -369,13 +369,14 @@ def test_tuning_spaces_and_step3_estimates():
 
 # recurrentgemma's local attention, head_dim 256.  bf16: the wgmma body at
 # block_q 64 or 128 and block_k 64 (Q up to 64 KB and two stages of K and V,
-# 128 KB; block_k 128 would need 256 KB).  float32: the scalar body at
-# block_q <= 64 (16 threads per row group: 512 threads at 128).
+# 128 KB; block_k 128 would need 256 KB).  float32: the split-TF32 wgmma
+# body at 64 x 32 only, with one stage of the ring (K and V^T, hi and lo:
+# 128 KB) beside the raw Q tile (65 KB).
 @pytest.mark.parametrize("dtype,points,smem,refused", [
     (torch.bfloat16, {(64, 64), (128, 64)}, {(128, 64): 197_760},
      [(64, 128), (32, 64)]),
-    (torch.float32, {(32, 32), (32, 64), (64, 32), (64, 64)},
-     {(64, 64): 216_320}, [(128, 32)]),
+    (torch.float32, {(64, 32)}, {(64, 32): 198_784},
+     [(128, 32), (64, 64), (32, 32)]),
 ])
 def test_flash_tiles_at_head_dim_256(dtype, points, smem, refused):
     q = torch.empty((1, 10, 4096, 256), dtype=dtype, device="meta")

@@ -10,15 +10,23 @@ restore, shard_batch, and qwen2-72b (reduced) trained on 2x2, then on 1x1
 and with no mesh by rank 0 alone.
 ``families``: every family's train and serve steps on 2x2.
 ``compression``: the int8 all-reduce.  Each rank's process group times out after PG_TIMEOUT_S.
+
+The ranks meet through a file in OUTDIR (``file://`` rendezvous): no port
+is picked, released and bound again, so no other process on the machine
+can take it in between.  Every rank writes the start and the seconds of
+each of its stages to OUTDIR/stages.rank<R>.txt as it goes; the tests
+spawn a job through :func:`run_job`, whose error carries those lines.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import functools
 import json
 import os
-import socket
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +36,8 @@ sys.path.insert(0, str(SRC))
 
 WORLD = 4
 PG_TIMEOUT_S = 120
+# seconds a job's spawn may take: ~10x what each took alone on 8 idle cores
+SPAWN_TIMEOUT_S = {"parallel": 600, "families": 600, "compression": 300}
 QWEN_STEPS = 5
 # one arch a family: hybrid, dense, MoE, SSM, VLM, audio; the hybrid's
 # train step under the dots remat, the others' without remat
@@ -35,19 +45,55 @@ FAMILY_ARCHS = ("recurrentgemma-2b", "qwen2-72b", "mixtral-8x7b",
                 "falcon-mamba-7b", "paligemma-3b", "whisper-small")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _init(rank: int, world: int, port: int):
+def _init(rank: int, world: int, store: Path):
+    """Join the gloo group of ``world`` ranks that meet at the file
+    ``store`` (a new path for each group)."""
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)        # 4 ranks on a shared CPU
     dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        "gloo", init_method=f"file://{store}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+
+
+@contextlib.contextmanager
+def _stage(out: Path, rank: int, name: str):
+    """Log the stage's start and its seconds, to stderr and to the rank's
+    file in ``out`` (appended and flushed: readable after a kill)."""
+    def log(text):
+        line = f"[worker rank {rank}] {time.strftime('%H:%M:%S')} {text}"
+        print(line, file=sys.stderr, flush=True)
+        with open(out / f"stages.rank{rank}.txt", "a") as f:
+            f.write(line + "\n")
+    log(f"{name} start")
+    t0 = time.perf_counter()
+    yield
+    log(f"{name} {time.perf_counter() - t0:.1f} s")
+
+
+def run_job(job: str, out: Path) -> None:
+    """Run ``job``'s 4 ranks in one subprocess; raise ``AssertionError``
+    when it fails or outlives ``SPAWN_TIMEOUT_S[job]``, with every rank's
+    stage lines and the end of its stderr."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    limit = SPAWN_TIMEOUT_S[job]
+    try:
+        proc = subprocess.run([sys.executable, __file__, job, str(out)],
+                              env=env, capture_output=True, text=True,
+                              timeout=limit, cwd=SRC.parent)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr.decode() if isinstance(e.stderr, bytes) else e.stderr
+        raise AssertionError(f"{job}: still running after {limit} s\n"
+                             + _report(out, err or "")) from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{job}: exit {proc.returncode}\n"
+                             + _report(out, proc.stderr))
+
+
+def _report(out: Path, stderr: str) -> str:
+    stages = "".join(p.read_text()
+                     for p in sorted(out.glob("stages.rank*.txt")))
+    return f"stages:\n{stages}stderr (end):\n{stderr[-4000:]}"
 
 
 def _dump(out: Path, name: str, obj) -> None:
@@ -61,12 +107,6 @@ def _pl(placements) -> list:
             else "P" for p in placements]
 
 
-def _timed(name, fn, *args):
-    import time
-    t0 = time.perf_counter()
-    fn(*args)
-    print(f"[worker] {name} {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -230,66 +270,69 @@ def _restore_and_batch(rank, out):
 
 def _families(rank, out):
     """Every family's train step and prefill + decode step on 2x2."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(2, 2)
+    res = {}
+    for arch in FAMILY_ARCHS:
+        with _stage(out, rank, arch):
+            res[arch] = _family(arch, mesh, out, rank)
+    if rank == 0:
+        _dump(out, "families.json", res)
+
+
+def _family(arch, mesh, out, rank) -> dict:
+    """One family's train step on 2x2, then its prefill and a greedy decode
+    step with and without the mesh, on the trained parameters."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import shardings as SH
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import factory as F
     from repro_torch.parallel.ctx import parallel_context
     from repro_torch.parallel.rules import ParallelismConfig, batch_shardings
     from repro_torch.runtime import steps as RS
 
-    import time
-    mesh = make_host_mesh(2, 2)
-    res = {}
-    for arch in FAMILY_ARCHS:
-        t0 = time.perf_counter()
-        cfg = get_config(arch).reduced()
-        pcfg = ParallelismConfig(fsdp=True, remat="dots" if arch ==
-                                 FAMILY_ARCHS[0] else "none")
+    cfg = get_config(arch).reduced()
+    pcfg = ParallelismConfig(fsdp=True, remat="dots" if arch ==
+                             FAMILY_ARCHS[0] else "none")
+    batch = F.synthetic_batch(cfg, 4, 16, seed=5)
+    with _stage(out, rank, f"{arch} train"):
         gen = torch.Generator().manual_seed(11)
         state = SH.distribute(RS.init_train_state(cfg, gen),
                               SH.train_state_shardings(cfg, mesh, pcfg))
-        batch = F.synthetic_batch(cfg, 4, 16, seed=5)
         tstep = RS.make_train_step(cfg, pcfg)
         with parallel_context(mesh, pcfg) as pc:
             state, m = tstep(state, shard_batch(batch, mesh, pcfg))
         loss = m["loss"].full_tensor().item()
-        t_train = time.perf_counter() - t0
-        n_front = cfg.n_front
-        ctx = 16 + n_front + 2
-        params = state["params"]
-        plain = {k: torch.as_tensor(v) for k, v in batch.items()}
-        with torch.no_grad():
-            whole = {k: v for k, v in _full(params).items()}
-            lg, cache = F.make_prefill_step(cfg, ctx=ctx)(whole, plain)
-            tok = lg.argmax(-1).to(torch.int32)
-            pos = torch.full((4,), 16 + n_front, dtype=torch.int32)
-            lg2, _ = F.make_serve_step(cfg)(whole, cache, tok, pos)
-            with parallel_context(mesh, pcfg) as pc2:
-                dlg, dcache = F.make_prefill_step(cfg, ctx=ctx)(
-                    params, shard_batch(batch, mesh, pcfg))
-                toks = batch_shardings({"t": tok, "p": pos}, mesh, pcfg)
-                dtok = SH.distribute(tok, toks["t"])
-                dpos = SH.distribute(pos, toks["p"])
-                dlg2, _ = F.make_serve_step(cfg)(params, dcache, dtok, dpos)
-        a, b2 = dlg.full_tensor(), dlg2.full_tensor()
-        res[arch] = {
-            "loss": loss, "finite": bool(torch.isfinite(a).all()
-                                         and torch.isfinite(b2).all()
-                                         and np.isfinite(loss)),
-            "shapes": [list(a.shape), list(b2.shape)],
-            "prefill_err": float((a - lg).abs().max()),
-            "decode_err": float((b2 - lg2).abs().max()),
-            "logit_scale": float(lg.abs().max()),
-            "gathered": dict(pc.gathered) | {
-                "serve:" + k: v for k, v in pc2.gathered.items()}}
-        if rank == 0:
-            print(f"[worker] {arch} {time.perf_counter() - t0:.1f} s "
-                  f"(train {t_train:.1f})", file=sys.stderr, flush=True)
-    if rank == 0:
-        _dump(out, "families.json", res)
+    n_front = cfg.n_front
+    ctx = 16 + n_front + 2
+    params = state["params"]
+    plain = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with torch.no_grad():
+        whole = {k: v for k, v in _full(params).items()}
+        lg, cache = F.make_prefill_step(cfg, ctx=ctx)(whole, plain)
+        tok = lg.argmax(-1).to(torch.int32)
+        pos = torch.full((4,), 16 + n_front, dtype=torch.int32)
+        lg2, _ = F.make_serve_step(cfg)(whole, cache, tok, pos)
+        with parallel_context(mesh, pcfg) as pc2:
+            dlg, dcache = F.make_prefill_step(cfg, ctx=ctx)(
+                params, shard_batch(batch, mesh, pcfg))
+            toks = batch_shardings({"t": tok, "p": pos}, mesh, pcfg)
+            dtok = SH.distribute(tok, toks["t"])
+            dpos = SH.distribute(pos, toks["p"])
+            dlg2, _ = F.make_serve_step(cfg)(params, dcache, dtok, dpos)
+    a, b2 = dlg.full_tensor(), dlg2.full_tensor()
+    return {
+        "loss": loss, "finite": bool(torch.isfinite(a).all()
+                                     and torch.isfinite(b2).all()
+                                     and np.isfinite(loss)),
+        "shapes": [list(a.shape), list(b2.shape)],
+        "prefill_err": float((a - lg).abs().max()),
+        "decode_err": float((b2 - lg2).abs().max()),
+        "logit_scale": float(lg.abs().max()),
+        "gathered": dict(pc.gathered) | {
+            "serve:" + k: v for k, v in pc2.gathered.items()}}
 
 
 def _full(tree):
@@ -315,31 +358,42 @@ def _qwen_losses(mesh):
     return {"losses": res.losses, "grad_norms": res.grad_norms}
 
 
-def _parallel(rank, port, out):
+def _parallel(rank, out):
     import torch.distributed as dist
-
-    _init(rank, WORLD, port)
-    _timed("pipeline", _pipeline, rank, out)
-    _timed("placements", _placements, rank, out)
-    _timed("kernels", _kernels, rank, out)
-    _timed("embed", _embed, rank, out)
-    _timed("restore", _restore_and_batch, rank, out)
     from repro_torch.launch.mesh import make_host_mesh
-    two = _qwen_losses(make_host_mesh(2, 2))
+
+    _init(rank, WORLD, out / "rendezvous.2x2")
+    for name, fn in (("pipeline", _pipeline), ("placements", _placements),
+                     ("kernels", _kernels), ("embed", _embed),
+                     ("restore", _restore_and_batch)):
+        with _stage(out, rank, name):
+            fn(rank, out)
+    with _stage(out, rank, "qwen 2x2"):
+        two = _qwen_losses(make_host_mesh(2, 2))
     dist.destroy_process_group()
     if rank != 0:
         return
-    _init(0, 1, _free_port())                # a world of 1: the 1x1 mesh
-    one = _qwen_losses(make_host_mesh(1, 1))
-    dist.destroy_process_group()
-    none = _qwen_losses("cpu")
+    with _stage(out, rank, "qwen 1x1 and no mesh"):
+        _init(0, 1, out / "rendezvous.1x1")   # a world of 1: the 1x1 mesh
+        one = _qwen_losses(make_host_mesh(1, 1))
+        dist.destroy_process_group()
+        none = _qwen_losses("cpu")
     _dump(out, "qwen.json", {"2x2": two, "1x1": one, "none": none})
 
 
 # ---------------------------------------------------------------------------
 # compression
 # ---------------------------------------------------------------------------
-def _compression(rank, port, out):
+def _compression(rank, out):
+    import torch.distributed as dist
+
+    _init(rank, WORLD, out / "rendezvous")
+    with _stage(out, rank, "compression"):
+        _compressed_sums(rank, out)
+    dist.destroy_process_group()
+
+
+def _compressed_sums(rank, out):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -347,7 +401,6 @@ def _compression(rank, port, out):
                                                init_error_state,
                                                tree_compressed_psum)
 
-    _init(rank, WORLD, port)
     data = np.load(out / "compression_in.npz")
     g = torch.from_numpy(data["grads"][rank])
     e = torch.from_numpy(data["errors"][rank])
@@ -366,14 +419,14 @@ def _compression(rank, port, out):
                                  "tree_err_c": te["b"]["c"].tolist()})
     if rank == 0:
         _dump(out, "compression.json", got)
-    dist.destroy_process_group()
 
 
-def _families_job(rank, port, out):
+def _families_job(rank, out):
     import torch.distributed as dist
 
-    _init(rank, WORLD, port)
-    _timed("families", _families, rank, out)
+    _init(rank, WORLD, out / "rendezvous")
+    with _stage(out, rank, "families"):
+        _families(rank, out)
     dist.destroy_process_group()
 
 
@@ -385,7 +438,7 @@ def main() -> None:
     import torch.multiprocessing as mp
 
     job, out = sys.argv[1], Path(sys.argv[2])
-    mp.spawn(JOBS[job], args=(_free_port(), out), nprocs=WORLD, join=True)
+    mp.spawn(JOBS[job], args=(out,), nprocs=WORLD, join=True)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    the planners' reduced models, paligemma's three causal S = 256 +
    bucket, timed beside SDPA with ``enable_gqa`` and the same causal
    mask as row 3p, and, row 3w, whisper's bidirectional encoder attention
-   at [1, 12/12, 1,500, 64], timed beside SDPA) and at one shape off the
+   at [1, 12/12, 1,500, 64], timed beside SDPA; both print the bf16 split
+   plan the card takes — blocks, chunks a q tile, blocks an SM holds —
+   and 3w each tile point's plan and time; at 3p's S = 768 the combine
+   kernel runs alone on the split kernel's partials, held against its
+   plain version and timed; the A/B of these rows against an earlier
+   commit's kernel is ``tools/flash_split_probe.py --parent``) and at one
+   shape off the
    kernel's grain
    (FIR: N=4000, where the default block_n 512 is clamped to 500; MRI-Q:
    300 x 200, ragged in both loops; the scans: S=9 and D=300, no multiple
@@ -1046,16 +1052,41 @@ def main() -> int:
     flops_rate = {bf16: BF16_FLOPS_PER_S, f32: TF32_FLOPS_PER_S / 3}
 
     def flash_direct(q, k, v, window, block_q, block_k, causal=True):
-        """The kernel from its C entry point (as ``c_entry``)."""
+        """The kernels from their C entry points (as ``c_entry``): bf16 as
+        the wrapper's split plan cuts it, then the combine where it cuts a
+        q tile."""
         o = torch.empty_like(q)
         b, hq, n, d = q.shape
-        return c_entry(FA._lib(), "flash_attention_launch", (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-            k.shape[1], n, d, block_q, block_k, int(causal), window,
-            1.0 / math.sqrt(d), int(q.dtype == bf16)), (o,), (
-                FA.flash_attention(q, k, v, causal=causal, window=window,
-                                   block_q=block_q, block_k=block_k),),
-            "flash_attention")
+        lib = FA._lib()
+        plan = (FA.device_plan(dev, b, hq, n, d, block_q, block_k, causal,
+                               window) if q.dtype == bf16 else None)
+        part = (torch.empty(plan.workspace_floats, dtype=f32, device=dev)
+                if plan is not None and plan.partials else None)
+        ws = ((part.data_ptr(), part.numel()) if part is not None
+              else (None, 0))
+        split = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                 hq, k.shape[1], n, d, block_q, block_k, int(causal), window,
+                 1.0 / math.sqrt(d), int(q.dtype == bf16),
+                 plan.chunk_tiles if plan else 0, *ws)
+
+        def make(on):
+            def launch():
+                code = lib.flash_attention_launch(*split, on)
+                if code == 0 and part is not None:
+                    code = lib.flash_attention_combine_launch(
+                        part.data_ptr(), o.data_ptr(), b, hq, n, d, block_q,
+                        block_k, int(causal), window, plan.chunk_tiles, on)
+                return code, (o, part)
+            return launch
+
+        want = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_q=block_q, block_k=block_k)
+        _build.check(make(stream)()[0], lib, "flash_attention")
+        torch.cuda.synchronize()
+        if not torch.equal(o, want):
+            raise AssertionError("flash_attention: direct launch and wrapper "
+                                 "differ")
+        return make
 
     flash_cases = [(f"serve S={n}", 1, 32, 8, n, 128, bf16, 0)
                    for n in SERVE_BUCKETS]
@@ -1177,6 +1208,69 @@ def main() -> int:
         del q, k, v, got, want
     torch.cuda.empty_cache()
 
+    def plan_text(b, hq, n, d, bq, bk, causal, window):
+        """The split plan the wrapper takes for the call on this card."""
+        p = FA.device_plan(dev, b, hq, n, d, bq, bk, causal, window)
+        return (f"plan at {bq}x{bk}: {p.units * b * hq} blocks ({p.units} a "
+                f"head), chunk_tiles {p.chunk_tiles}, chunks a q tile (last "
+                f"first) {[len(c) for _, c in p.tiles]}, "
+                f"{FA.ctas_per_sm(bq, bk, d, dev.index or 0)} block(s) an SM "
+                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor) on "
+                f"{torch.cuda.get_device_properties(dev).multi_processor_count}"
+                f" SMs")
+
+    def combine_row(q, k, v, plan):
+        """The combine kernel on the partials the split kernel wrote under
+        ``plan``, against flash_attention_combine_plain on the same
+        partials; its time alone as graph replays of its C entry point;
+        bound: the partials read and the split rows of o written once."""
+        lib, (b, hq, n, d) = FA._lib(), q.shape
+        if not plan.partials:
+            raise AssertionError(f"flash_attention: the plan splits no q "
+                                 f"tile at [{b}, {hq}, {n}, {d}]")
+        o = torch.zeros_like(q)
+        part = torch.empty(plan.workspace_floats, dtype=f32, device=dev)
+        _build.check(lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+            k.shape[1], n, d, plan.block_q, plan.block_k, int(plan.causal),
+            plan.window, 1.0 / math.sqrt(d), 1, plan.chunk_tiles,
+            part.data_ptr(), part.numel(), stream), lib, "flash_attention")
+        torch.cuda.synchronize()
+        want = FA.flash_attention_combine_plain(part, plan, o)
+
+        def make(on):
+            return lambda: lib.flash_attention_combine_launch(
+                part.data_ptr(), o.data_ptr(), b, hq, n, d, plan.block_q,
+                plan.block_k, int(plan.causal), plan.window,
+                plan.chunk_tiles, on)
+
+        _build.check(make(stream)(), lib, "flash_attention_combine")
+        torch.cuda.synchronize()
+        assert_close(torch, o.float(), want.float(),
+                     "flash_attention_combine", rtol=2e-2, atol=2e-2)
+        err = max_abs_err(torch, o.float(), want.float())
+        ms, ms_range = graph_ms(torch, make, 20)
+        plain_ms, plain_range = cuda_ms(
+            torch, lambda: FA.flash_attention_combine_plain(part, plan, o), 3)
+        split_rows = sum(min(plan.block_q, n - qt * plan.block_q)
+                         for qt, c in plan.tiles if len(c) > 1)
+        moved = 4 * plan.workspace_floats + 2 * b * hq * split_rows * d
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print(f"flash_attention_combine at [{b}, {hq}/{k.shape[1]}, {n}, "
+              f"{d}] ({plan.split_tiles} of {-(-n // plan.block_q)} q tiles "
+              f"split, {plan.partials} chunks a head): max_abs_err {err:.3e} "
+              f"(tol rtol=atol=2e-2, against flash_attention_combine_plain "
+              f"on the same partials); kernel {ms:.4f} ms {ms_range}  plain "
+              f"{plain_ms:.4f} ms {plain_range}  bound {bound_ms * 1e3:.2f} "
+              f"us (bytes: {moved / 1e6:.2f} MB, {bound_ms / ms:.1%} of it) "
+              f"[{card}]")
+        return {"name": "flash_attention_combine", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:74",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None}
+
     # row 3w: whisper-small's encoder (phase 15), bidirectional
     # self-attention over its 1,500 positions in 12/12 heads of width 64;
     # S no multiple of a tile.  Timed as graph replays beside SDPA
@@ -1193,6 +1287,19 @@ def main() -> int:
     bq, bk = FA.default_tiles(bf16, d)
     ms, ms_range = graph_ms(torch, flash_direct(q, k, v, 0, bq, bk,
                                                 causal=False), 20)
+    # the split plan at each bf16 tile point of head_dim 64 (the default
+    # first), each point timed the same way
+    sweep = {}
+    for pq, pk in [(bq, bk)] + [(pq, pk) for pq in FA.WGMMA_BLOCK_QS
+                                for pk in FA.WGMMA_BLOCK_KS
+                                if (pq, pk) != (bq, bk)
+                                and FA.fits(pq, pk, d, bf16)]:
+        print(f"  3w {plan_text(b, h, n, d, pq, pk, False, 0)}")
+        sweep[(pq, pk)] = (ms if (pq, pk) == (bq, bk) else graph_ms(
+            torch, flash_direct(q, k, v, 0, pq, pk, causal=False), 20)[0])
+    print("  3w tile points (block_q x block_k: kernel + combine ms): "
+          + ", ".join(f"{pq}x{pk}: {t:.4f}" for (pq, pk), t in sweep.items())
+          + f"; default {bq}x{bk}")
     plain_ms, plain_range = cuda_ms(torch, lambda: FA.flash_attention_plain(
         q, k, v, causal=False), 3)
     lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(q, k, v), 20)
@@ -1201,7 +1308,11 @@ def main() -> int:
     flash_whisper = {"max_abs_err": max_abs_err(torch, got.float(),
                                                 want.float()),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms}
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "chunk_tiles": FA.device_plan(
+                         dev, b, h, n, d, bq, bk, False, 0).chunk_tiles,
+                     "tile_points_ms": {f"{pq}x{pk}": t
+                                        for (pq, pk), t in sweep.items()}}
     print(f"flash_attention 3w whisper encoder [B={b}, Hq={h}, Hkv={h}, "
           f"S={n}, D={d}] bf16 bidirectional, tiles {bq}x{bk}: max_abs_err="
           f"{flash_whisper['max_abs_err']:.3e} (tol rtol=atol=2e-2); kernel "
@@ -1231,9 +1342,13 @@ def main() -> int:
         assert_close(torch, lib.float(), want.float(),
                      f"SDPA vs plain (3p S={n})", rtol=2e-2, atol=2e-2)
         bq, bk = FA.default_tiles(bf16, d)
+        print(f"  3p S={n} {plan_text(b, hq, n, d, bq, bk, True, 0)}")
         ms, ms_range = graph_ms(torch, flash_direct(q, k, v, 0, bq, bk), 10)
         plain_ms, plain_range = cuda_ms(
             torch, lambda: FA.flash_attention_plain(q, k, v, causal=True), 3)
+        if n == PALI_SEQS[1]:
+            rows["flash_attention_combine"] = combine_row(
+                q, k, v, FA.device_plan(dev, b, hq, n, d, bq, bk, True, 0))
         lib_ms, lib_range = graph_ms(torch, lambda on: lambda: sdpa(
             q, k, v, is_causal=True, enable_gqa=True), 10)
         bound_ms, bound_by = flash_bound_ms(b, hq, hkv, n, d, 2, True, 0,
@@ -1241,7 +1356,9 @@ def main() -> int:
         flash_pali[n] = {"max_abs_err": max_abs_err(torch, got.float(),
                                                     want.float()),
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": lib_ms}
+                         "bound_by": bound_by, "library_ms": lib_ms,
+                         "chunk_tiles": FA.device_plan(
+                             dev, b, hq, n, d, bq, bk, True, 0).chunk_tiles}
         print(f"flash_attention 3p paligemma [B={b}, Hq={hq}, Hkv={hkv}, "
               f"S={n}, D={d}] bf16 causal, tiles {bq}x{bk}: max_abs_err="
               f"{flash_pali[n]['max_abs_err']:.3e} (tol rtol=atol=2e-2); "
@@ -2177,6 +2294,10 @@ def main() -> int:
     # recurrentgemma's local attention (head_dim 256)
     rows["flash_attention"]["launches"] = (serve_launches["flash_attention"]
                                            + hybrid_launches["flash_attention"])
+    # the combine runs wherever the card's split plan cuts a q tile
+    rows["flash_attention_combine"]["launches"] = (
+        serve_launches["flash_attention_combine"]
+        + hybrid_launches["flash_attention_combine"])
     rows["decode_attention"]["launches"] = decode_launches["decode_attention"]
     rows["ssm_scan"]["launches"] = ssm_launches["ssm_scan"]
     rows["rglru_scan"]["launches"] = hybrid_launches["rglru_scan"]
@@ -2903,6 +3024,8 @@ def main() -> int:
     print(f"launches in phase 14: serving {moe_launches}; extraction "
           f"{moe_extract}; phase wall {time.perf_counter() - t14:.1f} s")
     rows["flash_attention"]["launches"] += moe_launches["flash_attention"]
+    rows["flash_attention_combine"]["launches"] += moe_launches[
+        "flash_attention_combine"]
     rows["rmsnorm"]["launches"] += moe_extract["rmsnorm"]
     del prog, report, again, ref, hop, fn14, args14
     gc.collect()
@@ -3022,6 +3145,18 @@ def main() -> int:
           f"{time.perf_counter() - t16:.1f} s [{card}]")
     rows["flash_attention"]["launches"] += (enc_launches["flash_attention"]
                                             + pali_launches["flash_attention"])
+    rows["flash_attention_combine"]["launches"] += (
+        enc_launches["flash_attention_combine"]
+        + pali_launches["flash_attention_combine"])
+    print(f"flash_attention_combine launches: phase 6 "
+          f"{serve_launches['flash_attention_combine']}, 9 "
+          f"{hybrid_launches['flash_attention_combine']}, 14 "
+          f"{moe_launches['flash_attention_combine']}, 15 "
+          f"{enc_launches['flash_attention_combine']}, 16 "
+          f"{pali_launches['flash_attention_combine']}")
+    if rows["flash_attention_combine"]["launches"] <= 0:
+        raise AssertionError("flash_attention_combine was not launched on "
+                             "the main path")
     print(f"flash_attention 3w (whisper encoder, bidirectional, [1, 12/12, "
           f"1,500, 64]): {json.dumps(flash_whisper)}; launches: phase 15's "
           f"encode {enc_launches['flash_attention']}, phase 16's serving "
@@ -3422,9 +3557,11 @@ def main() -> int:
                              f"card; captures failed: {not_captured}")
 
     names = ("fir_filter_bank", "mriq_compute_q", "flash_attention",
-             "decode_attention", "ssm_scan", "rglru_scan", "rmsnorm")
+             "flash_attention_combine", "decode_attention", "ssm_scan",
+             "rglru_scan", "rmsnorm")
     print("kernels: " + ", ".join(f"{n} ported (cuda)" for n in names)
-          + "; no kernel left to port")
+          + "; no kernel left to port (flash_attention_combine: the second "
+          "kernel of a split bf16 flash call)")
     print(card)
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in ("name", "route", "source", "replaces",

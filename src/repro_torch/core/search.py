@@ -27,7 +27,9 @@ A pattern's cost is split in two, as the JAX package splits its AOT path:
   (``core/cuda_graphs.py``), and replayed once, which uploads it (billed
   to the compile step with the capture); ``warmup - 1`` replays and
   ``reps`` timed replays follow, each rep bracketed by
-  ``torch.cuda.Event(enable_timing=True)`` records on that stream, and the
+  ``torch.cuda.Event(enable_timing=True)`` records on that stream, the
+  start event queued behind a device-side wait (``TIMING_GATE_CYCLES``) so
+  that the host's launch of the replay falls outside the interval, and the
   graph and its pool are released when the measurement ends.  A capture
   that fails is a failed measurement (phase ``"compile"``, permanent, the
   capture's error text): a pattern is never timed eagerly on a card.  On
@@ -74,6 +76,15 @@ from repro_torch.core.regions import (Impl, canonical_gene, gene_variant,
 # the CUDA source each region's ``hopper`` variant launches
 # (``kernels/csrc/<source>.cu``); a stitched region ``a+b`` needs the
 # sources of its parts
+# A timed rep on a card queues a device-side wait of this many cycles
+# (~1 ms at an H100's 1.98 GHz) before its start event, so that the host
+# has queued the rep's replay when the start event runs and the interval
+# holds the device's work alone.  Without it the interval also held the
+# host's launch of the graph, which varies by tens of microseconds from rep
+# to rep and decided near-ties between patterns whose device work takes
+# ~10 us (tools/decode_tune_repeat.py).
+TIMING_GATE_CYCLES = 2_000_000
+
 HOPPER_SOURCES = {
     "fir_bank": "fir",
     "compute_q": "mriq",
@@ -434,6 +445,7 @@ def time_callable(fn, args, *, warmup: int = 1, reps: int = 5,
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 drain()
+                torch.cuda._sleep(TIMING_GATE_CYCLES)
                 start.record(stream)
                 again()
                 end.record(stream)

@@ -14,9 +14,20 @@
 // bf16: flash_wgmma_kernel, tensor cores fed by TMA.
 // * a block has one producer warpgroup (one thread of it issues every load)
 //   and BQ / 64 consumer warpgroups, each of which owns 64 query rows.
-//   grid = (query tiles, B * Hq), the q tiles with the most kv tiles first
-//   (blockIdx.x reversed), so that the causal triangle's long rows do not
-//   finish last.  The kv head is qh / (Hq / Hkv).
+//   The kv head is qh / (Hq / Hkv).
+// * work units (split-KV): a block takes one unit, a q tile and a
+//   contiguous chunk of the kv tiles it visits; grid = (B * Hq, units of a
+//   head), heads fastest, so that every head's units go out in unit order:
+//   the q tiles from the last (under a causal mask, the most kv tiles)
+//   down, each tile's chunks in turn.  Where one unit a q tile leaves SMs
+//   idle (few heads, short or causal sequences: 48 blocks at paligemma's
+//   [1, 8/1, 768, 256], 144 in two waves at whisper's encoder [1, 12/12,
+//   1,500, 64] on 132 SMs), split_plan cuts the longest ranges into chunks
+//   of at least 2 tiles.  An unsplit tile stores o in bf16; a chunk of a
+//   split tile stores its unnormalized float32 accumulator and each row's
+//   (m, l) in a workspace, and flash_combine_kernel, launched next on the
+//   stream as a programmatic dependent, sums the chunks of each row in a
+//   fixed order (replays are bit-equal).
 // * the producer loads the Q tile once, then streams K and V tiles of BK
 //   keys through a ring of STAGES stages in shared memory with
 //   cp.async.bulk.tensor (TMA) over 3-D tensor maps [B * H, S, D], so that
@@ -103,6 +114,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <functional>
+#include <map>
+#include <mutex>
+#include <queue>
+#include <vector>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -123,6 +141,67 @@ constexpr size_t wgmma_smem_bytes(int bq, int bk, int d) {
 
 constexpr int PRODUCER_THREADS = 128;   // the producer warpgroup
 constexpr int wgmma_threads(int bq) { return bq / 64 * 128 + PRODUCER_THREADS; }
+
+// ---------------------------------------------------------------------------
+// bf16 work units (split-KV): a q tile's kv tiles [begin, end) are cut into
+// `chunks` contiguous chunks of at least SPLIT_MIN_TILES tiles (the first
+// n % chunks one tile longer), one block each.  split_plan (host) picks
+// chunk_tiles; kernels/flash_attention.py::split_plan is its twin.
+// ---------------------------------------------------------------------------
+constexpr int SPLIT_MIN_TILES = 2;
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// the kv tiles [begin, end) that q tile qt visits: below the causal
+// diagonal, not wholly below the window
+__host__ __device__ inline void visit_range(int qt, int S, int bq, int bk,
+                                            int causal, int window,
+                                            int& begin, int& end) {
+  const int q0 = qt * bq;
+  const int n_tiles = (S + bk - 1) / bk;
+  end = causal ? imin(n_tiles, (q0 + bq + bk - 1) / bk) : n_tiles;
+  begin = window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / bk : 0;
+}
+
+// chunks of a range of n tiles: ceil(n / chunk_tiles), none below
+// SPLIT_MIN_TILES tiles; one where chunk_tiles is 0 (no split) or n fits
+__host__ __device__ inline int chunk_count(int n, int chunk_tiles) {
+  if (chunk_tiles <= 0 || n <= chunk_tiles) return 1;
+  return imin((n + chunk_tiles - 1) / chunk_tiles, n / SPLIT_MIN_TILES);
+}
+
+struct WorkUnit {
+  int qt;        // q tile
+  int begin, n;  // its kv tiles [begin, begin + n)
+  int partial;   // index among the (batch, head)'s split chunks; -1 unsplit
+};
+
+// unit u of a (batch, head): the q tiles from the last (under a causal mask,
+// the one with the most kv tiles) to the first, each tile's chunks in order
+__host__ __device__ inline WorkUnit work_unit(int u, int S, int bq, int bk,
+                                              int causal, int window,
+                                              int chunk_tiles) {
+  if (chunk_tiles <= 0) {                      // one unit a q tile
+    const int qt = (S + bq - 1) / bq - 1 - u;
+    int begin, end;
+    visit_range(qt, S, bq, bk, causal, window, begin, end);
+    return WorkUnit{qt, begin, end - begin, -1};
+  }
+  int partial = 0;
+  for (int qt = (S + bq - 1) / bq - 1; qt >= 0; --qt) {
+    int begin, end;
+    visit_range(qt, S, bq, bk, causal, window, begin, end);
+    const int n = end - begin, c = chunk_count(n, chunk_tiles);
+    if (u < c) {
+      const int base = n / c, rem = n % c;
+      return WorkUnit{qt, begin + u * base + imin(u, rem),
+                      base + (u < rem ? 1 : 0), c > 1 ? partial + u : -1};
+    }
+    u -= c;
+    if (c > 1) partial += c;
+  }
+  return WorkUnit{0, 0, 0, -1};   // past the last unit: not launched
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -467,8 +546,9 @@ __global__ void __launch_bounds__(wgmma_threads(BQ), 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ o, int S, int Hq, int Hkv,
-                   int causal, int window, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                   int S, int Hq, int Hkv, int causal, int window,
+                   float scale_log2, int chunk_tiles, int partials) {
   constexpr int NWG = BQ / 64;                 // consumer warpgroups
   constexpr int CW = D < 64 ? D : 64;          // columns of one swizzle row
   constexpr int Q_ELEMS = BQ * D, KV_ELEMS = BK * D;
@@ -489,15 +569,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* v_empty = k_empty + STAGES;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y;                   // b * Hq + qh
+  const int bh = blockIdx.x;                   // b * Hq + qh
   const int b = bh / Hq, qh = bh % Hq;
   const int kv_bh = b * Hkv + qh / (Hq / Hkv);
-  const int n_tiles = (S + BK - 1) / BK;
-  const int kt_end = causal ? min(n_tiles, (q0 + BQ + BK - 1) / BK) : n_tiles;
-  const int kt_begin =
-      window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / BK : 0;
-  const int n_visit = kt_end - kt_begin;
+  const WorkUnit unit = work_unit(blockIdx.y, S, BQ, BK, causal, window,
+                                  chunk_tiles);
+  const int q0 = unit.qt * BQ;
+  const int kt_begin = unit.begin, n_visit = unit.n;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -510,6 +588,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // the combine kernel, launched as a programmatic dependent, may be
+  // scheduled once every block has started (it waits for this grid's end)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   if (warp >= NWG * 4) {
     // ---- producer: one thread issues every TMA load, K one tile ahead of
@@ -637,24 +718,154 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(acc);
     }
 
-    float den[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      den[r] = fmaxf(l[r], 1e-30f);
     }
+    if (unit.partial < 0) {
+      float den[2];
 #pragma unroll
-    for (int j = 0; j < D / 2; j += 2) {
-      const int r = (j >> 1) & 1;
-      const int qi = qi0 + 8 * r;
-      if (qi < S) {
-        const size_t at = (static_cast<size_t>(bh) * S + qi) * D + 8 * (j / 4) + cq;
-        *reinterpret_cast<__nv_bfloat162*>(o + at) =
-            __floats2bfloat162_rn(acc[j] / den[r], acc[j + 1] / den[r]);
+      for (int r = 0; r < 2; ++r) den[r] = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 2; j += 2) {
+        const int r = (j >> 1) & 1;
+        const int qi = qi0 + 8 * r;
+        if (qi < S) {
+          const size_t at = (static_cast<size_t>(bh) * S + qi) * D + 8 * (j / 4) + cq;
+          *reinterpret_cast<__nv_bfloat162*>(o + at) =
+              __floats2bfloat162_rn(acc[j] / den[r], acc[j + 1] / den[r]);
+        }
+      }
+    } else {
+      // a chunk of a split q tile: its unnormalized float32 accumulator and
+      // each row's (m, l), m in log2 units, for flash_combine_kernel
+      const size_t slot = static_cast<size_t>(bh) * partials + unit.partial;
+      float* pacc = part + slot * BQ * D;
+      float* pml = part + static_cast<size_t>(gridDim.x) * partials * BQ * D +
+                   slot * BQ * 2;
+#pragma unroll
+      for (int j = 0; j < D / 2; j += 2) {
+        const int qi = qi0 + 8 * ((j >> 1) & 1);
+        if (qi < S)
+          *reinterpret_cast<float2*>(pacc + (qi - q0) * D + 8 * (j / 4) + cq) =
+              make_float2(acc[j], acc[j + 1]);
+      }
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = qi0 + 8 * r;
+          if (qi < S)
+            *reinterpret_cast<float2*>(pml + (qi - q0) * 2) = make_float2(m[r], l[r]);
+        }
       }
     }
   }
+}
+
+// o of the split q tiles.  Per row, over its tile's chunks c in order:
+// M = max_c m_c, w_c = 2^(m_c - M), o = sum_c w_c acc_c / max(sum_c w_c l_c,
+// 1e-30) in float32, rounded to bf16 once.  A chunk whose keys the mask
+// removes for the row kept m_c = NEG_INF, so its weight is 2^(NEG_INF - M)
+// = 0.  A thread takes COLS columns of one row (8 from D = 64: two 16-byte
+// loads a chunk), a block ROWS rows of one tile; a thread issues the loads
+// of its first COMBINE_HELD chunks before it uses any, and it is a bytes-
+// bound pass: the partials read once, o's rows written once.  Launched as
+// a programmatic dependent of flash_wgmma_kernel: it waits for that grid's
+// end (griddepcontrol.wait) before it reads a partial.
+constexpr int COMBINE_THREADS = 256;
+constexpr int COMBINE_HELD = 4;                 // chunks a thread holds
+
+template <int D>
+struct CombineShape {
+  static constexpr int COLS = D >= 64 ? 8 : 4;  // columns a thread
+  static constexpr int TPR = D / COLS;          // threads a row
+  static constexpr int ROWS = COMBINE_THREADS / TPR;   // divides 64
+};
+
+template <int D>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+flash_combine_kernel(const float* __restrict__ part,
+                     __nv_bfloat16* __restrict__ o, int S, int bq, int bk,
+                     int causal, int window, int chunk_tiles, int partials) {
+  constexpr int COLS = CombineShape<D>::COLS, TPR = CombineShape<D>::TPR;
+  constexpr int ROWS = CombineShape<D>::ROWS, V4 = COLS / 4;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int groups = bq / ROWS;
+  const int bh = blockIdx.y;
+  const int row = blockIdx.x % groups * ROWS + threadIdx.x / TPR;
+  const int col = threadIdx.x % TPR * COLS;
+  // the (blockIdx.x / groups)-th split q tile, in work_unit's order
+  int skip = blockIdx.x / groups, partial = 0, chunks = 1, qt;
+  for (qt = (S + bq - 1) / bq - 1; qt >= 0; --qt) {
+    int begin, end;
+    visit_range(qt, S, bq, bk, causal, window, begin, end);
+    chunks = chunk_count(end - begin, chunk_tiles);
+    if (chunks == 1) continue;
+    if (skip == 0) break;
+    --skip;
+    partial += chunks;
+  }
+  const int qi = qt * bq + row;
+  if (qt < 0 || qi >= S) return;
+  const size_t slot = static_cast<size_t>(bh) * partials + partial;
+  const float4* pacc =
+      reinterpret_cast<const float4*>(part + (slot * bq + row) * D + col);
+  const float2* pml = reinterpret_cast<const float2*>(
+      part + static_cast<size_t>(gridDim.y) * partials * bq * D) +
+      slot * bq + row;
+  const size_t acc_step = static_cast<size_t>(bq) * D / 4;   // chunk c + 1
+  float2 ml[COMBINE_HELD];
+  float4 x[COMBINE_HELD][V4];
+#pragma unroll
+  for (int c = 0; c < COMBINE_HELD; ++c) {
+    if (c < chunks) {
+      ml[c] = pml[c * bq];
+#pragma unroll
+      for (int v = 0; v < V4; ++v) x[c][v] = pacc[c * acc_step + v];
+    }
+  }
+  float mx = NEG_INF;
+#pragma unroll
+  for (int c = 0; c < COMBINE_HELD; ++c)
+    if (c < chunks) mx = fmaxf(mx, ml[c].x);
+  for (int c = COMBINE_HELD; c < chunks; ++c) mx = fmaxf(mx, pml[c * bq].x);
+  float l = 0.f, a[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) a[j] = 0.f;
+  auto add = [&](float2 m_l, const float4 (&xc)[V4]) {
+    const float w = exp2f(m_l.x - mx);
+    l = fmaf(w, m_l.y, l);
+#pragma unroll
+    for (int v = 0; v < V4; ++v) {
+      a[4 * v] = fmaf(w, xc[v].x, a[4 * v]);
+      a[4 * v + 1] = fmaf(w, xc[v].y, a[4 * v + 1]);
+      a[4 * v + 2] = fmaf(w, xc[v].z, a[4 * v + 2]);
+      a[4 * v + 3] = fmaf(w, xc[v].w, a[4 * v + 3]);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < COMBINE_HELD; ++c)
+    if (c < chunks) add(ml[c], x[c]);
+  for (int c = COMBINE_HELD; c < chunks; ++c) {
+    float4 xc[V4];
+#pragma unroll
+    for (int v = 0; v < V4; ++v) xc[v] = pacc[c * acc_step + v];
+    add(pml[c * bq], xc);
+  }
+  const float den = fmaxf(l, 1e-30f);
+  uint32_t packed[COLS / 2];
+#pragma unroll
+  for (int j = 0; j < COLS; j += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a[j] / den, a[j + 1] / den);
+    packed[j / 2] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __nv_bfloat16* out = o + (static_cast<size_t>(bh) * S + qi) * D + col;
+  if constexpr (COLS == 8)
+    *reinterpret_cast<uint4*>(out) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  else
+    *reinterpret_cast<uint2*>(out) = make_uint2(packed[0], packed[1]);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
@@ -708,25 +919,243 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int d,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// the split plan (host; kernels/flash_attention.py::split_plan is its twin,
+// and _lib() holds the two equal).  A block per (batch x head, unit); units
+// are dispatched head-fastest (grid.x = B * Hq), so that every head's
+// longest units go first.  The plan simulates that dispatch onto n_sm x
+// ctas_per_sm slots, each unit to the slot free first: a unit of n kv tiles
+// costs 250 + BQ * D / 4 ns (its Q tile's load, its output's store) plus n
+// tiles of BQ * BK * (D + 64) / 1500 ns (the products, and the softmax as
+// much as 64 columns more), and a split adds the combine, 1,000 ns plus
+// the partials' float32 bytes at 2,500 bytes a ns.  The constants are a fit
+// to every cut of rows 3, 3b, 3p and 3w of PERF.md on an H100 (split +
+// combine as graph replays, tools/flash_split_probe.py --sweep): the fit
+// that picks each row's fastest measured cut within 2%.  No split where
+// the one-unit-a-q-tile grid fills SPLIT_NO_SPLIT_WAVES waves; chunk_tiles
+// falls from the longest range down to SPLIT_MIN_TILES while the units
+// stay within SPLIT_MAX_WAVES waves; the least estimate wins, the longer
+// chunks on a tie.  All integer arithmetic, so that C and Python agree.
+// ---------------------------------------------------------------------------
+constexpr int SPLIT_NO_SPLIT_WAVES = 4;
+constexpr int SPLIT_MAX_WAVES = 16;
+constexpr long long SPLIT_COMBINE_NS = 1000;
+constexpr long long SPLIT_BYTES_PER_NS = 2500;
+
+struct SplitPlan {
+  int chunk_tiles;   // 0: one unit a q tile
+  int units;         // blocks of one (batch, head)
+  int partials;      // chunks of split q tiles, one (batch, head)
+  int split_tiles;   // q tiles cut into more than one chunk, one (batch, head)
+};
+
+// what cutting the ranges at chunk_tiles gives one (batch, head)
+SplitPlan split_counts(int S, int bq, int bk, int causal, int window,
+                       int chunk_tiles) {
+  SplitPlan p{chunk_tiles, 0, 0, 0};
+  for (int qt = (S + bq - 1) / bq - 1; qt >= 0; --qt) {
+    int begin, end;
+    visit_range(qt, S, bq, bk, causal, window, begin, end);
+    const int c = chunk_count(end - begin, chunk_tiles);
+    p.units += c;
+    if (c > 1) {
+      p.partials += c;
+      ++p.split_tiles;
+    }
+  }
+  return p;
+}
+
+long long split_unit_ns(int bq, int d) {
+  return 250 + static_cast<long long>(bq) * d / 4;
+}
+
+long long split_tile_ns(int bq, int bk, int d) {
+  return static_cast<long long>(bq) * bk * (d + 64) / 1500;
+}
+
+// the last finish time of `sizes` (a head's units in order, in kv tiles)
+// dispatched head-fastest for bh heads onto `slots` identical slots, each
+// unit to the slot free first
+long long schedule_ns(int bh, const int* sizes, int n_units, int slots,
+                      long long unit_ns, long long tile_ns) {
+  std::priority_queue<long long, std::vector<long long>,
+                      std::greater<long long>> free_at;
+  for (int i = 0; i < slots; ++i) free_at.push(0);
+  long long last = 0;
+  for (int u = 0; u < n_units; ++u)
+    for (int h = 0; h < bh; ++h) {
+      const long long t = free_at.top() + unit_ns + sizes[u] * tile_ns;
+      free_at.pop();
+      free_at.push(t);
+      last = t > last ? t : last;
+    }
+  return last;
+}
+
+SplitPlan compute_split_plan(int bh, int S, int d, int bq, int bk, int causal,
+                             int window, int n_sm, int ctas_per_sm) {
+  const int n_qt = (S + bq - 1) / bq;
+  const int slots = n_sm * ctas_per_sm;
+  std::vector<int> ranges;                     // kv tiles, in unit order
+  for (int qt = n_qt - 1; qt >= 0; --qt) {
+    int begin, end;
+    visit_range(qt, S, bq, bk, causal, window, begin, end);
+    ranges.push_back(end - begin);
+  }
+  SplitPlan best{0, n_qt, 0, 0};
+  if (static_cast<long long>(bh) * n_qt >=
+      static_cast<long long>(SPLIT_NO_SPLIT_WAVES) * slots)
+    return best;
+  const long long unit_ns = split_unit_ns(bq, d);
+  const long long tile_ns = split_tile_ns(bq, bk, d);
+  long long best_ns =
+      schedule_ns(bh, ranges.data(), n_qt, slots, unit_ns, tile_ns);
+  int longest = 0;
+  for (int n : ranges) longest = n > longest ? n : longest;
+  std::vector<int> sizes;
+  for (int t = longest - 1; t >= SPLIT_MIN_TILES; --t) {
+    sizes.clear();
+    for (int n : ranges) {
+      const int c = chunk_count(n, t);
+      for (int i = 0; i < c; ++i) sizes.push_back(n / c + (i < n % c ? 1 : 0));
+    }
+    const SplitPlan p = split_counts(S, bq, bk, causal, window, t);
+    if (static_cast<long long>(bh) * p.units >
+        static_cast<long long>(SPLIT_MAX_WAVES) * slots)
+      break;
+    if (p.partials == 0) continue;
+    const long long bytes =
+        static_cast<long long>(bh) * p.partials * bq * (d + 2) * 4;
+    const long long ns =
+        schedule_ns(bh, sizes.data(), p.units, slots, unit_ns, tile_ns) +
+        SPLIT_COMBINE_NS + bytes / SPLIT_BYTES_PER_NS;
+    if (ns < best_ns) {
+      best_ns = ns;
+      best = p;
+    }
+  }
+  return best;
+}
+
+// the plan, memoized: it runs on every launch
+SplitPlan split_plan_cached(int bh, int S, int d, int bq, int bk, int causal,
+                            int window, int n_sm, int ctas_per_sm) {
+  using Key = std::array<int, 9>;
+  static std::mutex lock;
+  static std::map<Key, SplitPlan> plans;
+  const Key key{bh, S, d, bq, bk, causal, window, n_sm, ctas_per_sm};
+  {
+    std::lock_guard<std::mutex> g(lock);
+    const auto it = plans.find(key);
+    if (it != plans.end()) return it->second;
+  }
+  const SplitPlan p =
+      compute_split_plan(bh, S, d, bq, bk, causal, window, n_sm, ctas_per_sm);
+  std::lock_guard<std::mutex> g(lock);
+  if (plans.size() >= 4096) plans.clear();
+  plans.emplace(key, p);
+  return p;
+}
+
+template <int D, int BQ, int BK>
+cudaError_t prepare_wgmma() {
+  return cudaFuncSetAttribute(
+      flash_wgmma_kernel<D, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(wgmma_smem_bytes(BQ, BK, D)));
+}
+
+// blocks of the instance an SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a device
+template <int D, int BQ, int BK>
+int wgmma_ctas_per_sm(int* ctas) {
+  static std::mutex lock;
+  static std::map<int, int> known;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> g(lock);
+  const auto it = known.find(dev);
+  if (it != known.end()) {
+    *ctas = it->second;
+    return 0;
+  }
+  e = prepare_wgmma<D, BQ, BK>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, flash_wgmma_kernel<D, BQ, BK>, wgmma_threads(BQ),
+        wgmma_smem_bytes(BQ, BK, D));
+  if (e == cudaSuccess) known[dev] = *ctas;
+  return static_cast<int>(e);
+}
+
+// SMs of the current device, asked once a device
+int device_sms(int* n_sm) {
+  static std::mutex lock;
+  static std::map<int, int> sms;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> g(lock);
+  const auto it = sms.find(dev);
+  if (it != sms.end()) {
+    *n_sm = it->second;
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) sms[dev] = *n_sm;
+  return static_cast<int>(e);
+}
+
+// the split kernel with chunk_tiles (0: one unit a q tile); ws holds
+// ws_floats float32 words, at least what the schedule's partials take
 template <int D, int BQ, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int S, int causal, int window, float scale,
+                 int chunk_tiles, float* ws, long long ws_floats,
                  cudaStream_t stream) {
+  const int bh = B * Hq;
+  const SplitPlan p = split_counts(S, BQ, BK, causal, window, chunk_tiles);
+  if (p.units > 65535 ||
+      static_cast<long long>(bh) * p.partials * BQ * (D + 2) > ws_floats ||
+      (p.partials > 0 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int e = make_map(&tq, q, B * Hq, S, D, BQ);
   if (e == 0) e = make_map(&tk, k, B * Hkv, S, D, BK);
   if (e == 0) e = make_map(&tv, v, B * Hkv, S, D, BK);
   if (e != 0) return e;
-  constexpr size_t smem = wgmma_smem_bytes(BQ, BK, D);
-  const cudaError_t a = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D, BQ, BK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t a = prepare_wgmma<D, BQ, BK>();
   if (a != cudaSuccess) return static_cast<int>(a);
-  const dim3 grid((S + BQ - 1) / BQ, B * Hq);
-  flash_wgmma_kernel<D, BQ, BK><<<grid, wgmma_threads(BQ), smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, causal, window,
-      scale * 1.4426950408889634f);
+  const dim3 grid(bh, p.units);
+  flash_wgmma_kernel<D, BQ, BK>
+      <<<grid, wgmma_threads(BQ), wgmma_smem_bytes(BQ, BK, D), stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), ws, S, Hq, Hkv, causal,
+          window, scale * 1.4426950408889634f, chunk_tiles, p.partials);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the combine of a split launch with chunk_tiles, as a programmatic
+// dependent of it on the same stream (its launch overlaps the split grid's
+// tail)
+template <int D>
+int launch_combine(const float* ws, void* o, int B, int Hq, int S, int bq,
+                   int bk, int causal, int window, int chunk_tiles,
+                   cudaStream_t stream) {
+  const SplitPlan p = split_counts(S, bq, bk, causal, window, chunk_tiles);
+  if (p.split_tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.split_tiles * (bq / CombineShape<D>::ROWS), B * Hq);
+  cfg.blockDim = dim3(COMBINE_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_combine_kernel<D>, ws, static_cast<__nv_bfloat16*>(o), S,
+      bq, bk, causal, window, chunk_tiles, p.partials));
 }
 
 // ---------------------------------------------------------------------------
@@ -1250,29 +1679,105 @@ long long flash_attention_smem_bytes(int block_q, int block_k, int d, int bf16) 
   return -1;
 }
 
+// the split plan for B * Hq = bh heads on n_sm SMs holding ctas_per_sm
+// blocks each: out = {chunk_tiles, units, partials, split_tiles}
+int flash_attention_split_plan(int bh, int S, int d, int block_q, int block_k,
+                               int causal, int window, int n_sm,
+                               int ctas_per_sm, int* out) {
+  if (bh <= 0 || S <= 0 || block_q <= 0 || block_k <= 0 || n_sm <= 0 ||
+      ctas_per_sm <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitPlan p = split_plan_cached(bh, S, d, block_q, block_k, causal,
+                                        window, n_sm, ctas_per_sm);
+  out[0] = p.chunk_tiles;
+  out[1] = p.units;
+  out[2] = p.partials;
+  out[3] = p.split_tiles;
+  return 0;
+}
+
+// blocks of the bf16 instance (d, block_q, block_k) an SM holds at once
+int flash_attention_ctas_per_sm(int block_q, int block_k, int d, int* ctas) {
+#define X(D_, BQ_, BK_)                                 \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)      \
+    return wgmma_ctas_per_sm<D_, BQ_, BK_>(ctas);
+  WGMMA_INSTANCES(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // q, o: contiguous [B, Hq, S, D]; k, v: contiguous [B, Hkv, S, D]; all of
 // one type (bf16 when bf16 != 0, else float32), 16-byte aligned.
-// bf16: (d, block_q, block_k) one of WGMMA_INSTANCES, float32 one of
-// TF32_INSTANCES.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Hq, int Hkv, int S, int d,
-                           int block_q, int block_k, int causal, int window,
-                           float scale, int bf16, void* stream) {
+// bf16: (d, block_q, block_k) one of WGMMA_INSTANCES, run as chunk_tiles
+// cuts it (0: one unit a q tile), its partials in ws (ws_floats float32
+// words; flash_attention_combine_launch then writes the split q tiles'
+// o); float32: one of TF32_INSTANCES, chunk_tiles 0.
+int flash_attention_launch_schedule(const void* q, const void* k,
+                                    const void* v, void* o, int B, int Hq,
+                                    int Hkv, int S, int d, int block_q,
+                                    int block_k, int causal, int window,
+                                    float scale, int bf16, int chunk_tiles,
+                                    float* ws, long long ws_floats,
+                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
 #define X(D_, BQ_, BK_)                                                    \
     if (d == D_ && block_q == BQ_ && block_k == BK_)                       \
       return launch_wgmma<D_, BQ_, BK_>(q, k, v, o, B, Hq, Hkv, S, causal, \
-                                        window, scale, s);
+                                        window, scale, chunk_tiles, ws,    \
+                                        ws_floats, s);
     WGMMA_INSTANCES(X)
 #undef X
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (chunk_tiles != 0) return static_cast<int>(cudaErrorInvalidValue);
 #define X(D_, BQ_, BK_)                                                   \
   if (d == D_ && block_q == BQ_ && block_k == BK_)                        \
     return launch_tf32<D_, BQ_, BK_>(q, k, v, o, B, Hq, Hkv, S, causal,   \
                                      window, scale, s);
   TF32_INSTANCES(X)
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// flash_attention_launch_schedule with the plan's chunk_tiles: bf16 plans
+// for the current device (its SMs, the instance's blocks an SM holds) and
+// fails unless the caller's chunk_tiles is that plan's
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* o, int B, int Hq, int Hkv, int S, int d,
+                           int block_q, int block_k, int causal, int window,
+                           float scale, int bf16, int chunk_tiles, float* ws,
+                           long long ws_floats, void* stream) {
+  if (bf16) {
+    int n_sm = 0, ctas = 0;
+    int e = device_sms(&n_sm);
+    if (e == 0) e = flash_attention_ctas_per_sm(block_q, block_k, d, &ctas);
+    if (e != 0) return e;
+    const SplitPlan p = split_plan_cached(B * Hq, S, d, block_q, block_k,
+                                          causal, window, n_sm, ctas);
+    if (p.chunk_tiles != chunk_tiles)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return flash_attention_launch_schedule(q, k, v, o, B, Hq, Hkv, S, d,
+                                         block_q, block_k, causal, window,
+                                         scale, bf16, chunk_tiles, ws,
+                                         ws_floats, stream);
+}
+
+// o's split q tiles from the partials ws of a bf16 launch with the same
+// shape, tiles and chunk_tiles, on the same stream after it
+int flash_attention_combine_launch(const float* ws, void* o, int B, int Hq,
+                                   int S, int d, int block_q, int block_k,
+                                   int causal, int window, int chunk_tiles,
+                                   void* stream) {
+  if (!wgmma_instance(d, block_q, block_k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+#define X(D_)                                                                  \
+  if (d == D_)                                                                 \
+    return launch_combine<D_>(ws, o, B, Hq, S, block_q, block_k, causal,       \
+                              window, chunk_tiles, s);
+  X(16) X(32) X(64) X(128) X(256)
 #undef X
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,8 +14,10 @@ and B are re-timed paired (:func:`retime`):
    replay of that graph;
 2. each is warmed with one call;
 3. 5 rounds of A, B, B, A follow, every call timed on its own: on a card
-   with CUDA events after a ``torch.cuda.synchronize()``, on the CPU with
-   the host clock;
+   with CUDA events after a ``torch.cuda.synchronize()``, the start event
+   behind a device-side wait so that the interval holds the device's work
+   and not the host's launch (as Step 4 times a rep), on the CPU with the
+   host clock;
 4. the statistic is the median over the rounds of (B1 + B2) / (A1 + A2).
 
 "Same winner" passes when the statistic lies within [1/1.05, 1.05] (the two
@@ -36,8 +38,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core.regions import Impl
-from repro_torch.core.search import (capture_pattern, compile_pattern,
-                                     pattern_sources)
+from repro_torch.core.search import (TIMING_GATE_CYCLES, capture_pattern,
+                                     compile_pattern, pattern_sources)
 
 TIE = 1.05
 ROUNDS = 5
@@ -55,11 +57,14 @@ def no_slower(ratio: float) -> bool:
 
 def call_seconds(fn: Callable[[], object], device) -> float:
     """One call of ``fn``, timed on ``device``: CUDA events after a
-    synchronize on a card, the host clock on the CPU."""
+    synchronize on a card, the start event behind the device-side wait
+    Step 4's reps take (``search.TIMING_GATE_CYCLES``: the host's launch of
+    the call out of the interval); the host clock on the CPU."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(TIMING_GATE_CYCLES)
         start.record()
         fn()
         end.record()

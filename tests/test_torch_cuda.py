@@ -962,6 +962,146 @@ def test_flash_paligemma_ragged_causal_gqa_on_cuda(cuda_device, s):
                                atol=2e-2)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 work split (split-KV) and its combine
+# ---------------------------------------------------------------------------
+def _cut(q, k, v, plan):
+    """o of the split kernel and its combine under ``plan``'s cut (any
+    chunk_tiles), from the C entry points on the current stream."""
+    lib, (b, hq, s, d) = FA._lib(), q.shape
+    o = torch.empty_like(q)
+    part = (torch.empty(plan.workspace_floats, dtype=torch.float32,
+                        device=q.device) if plan.partials else None)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = part.data_ptr() if part is not None else None
+    FA._build.check(lib.flash_attention_launch_schedule(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+        k.shape[1], s, d, plan.block_q, plan.block_k, int(plan.causal),
+        plan.window, 1 / np.sqrt(d), 1, plan.chunk_tiles, ptr,
+        part.numel() if part is not None else 0, stream), lib, "split")
+    if part is not None:
+        FA._build.check(lib.flash_attention_combine_launch(
+            ptr, o.data_ptr(), b, hq, s, d, plan.block_q, plan.block_k,
+            int(plan.causal), plan.window, plan.chunk_tiles, stream), lib,
+            "combine")
+    return o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,b,hq,hkv,s,d,causal,window,bq,bk", [
+    ("3p S=768", 1, 8, 1, 768, 256, True, 0, 128, 64),
+    ("window empties chunks", 1, 4, 2, 700, 64, True, 150, 128, 64),
+    ("S < block_q", 1, 4, 1, 100, 64, True, 0, 128, 64),
+    ("B > 1, ragged", 3, 4, 2, 650, 256, True, 0, 64, 64),
+    ("3w bidirectional", 1, 12, 12, 1500, 64, False, 0, 128, 128),
+    ("bidirectional window", 2, 4, 4, 900, 64, False, 200, 64, 128),
+])
+def test_flash_every_split_cut_matches_plain_on_cuda(cuda_device, case, b,
+                                                     hq, hkv, s, d, causal,
+                                                     window, bq, bk):
+    """Every distinct cut of the kv ranges (chunk_tiles from none down to
+    2 tiles), each within 2e-2 of the plain version; a chunk that the
+    window or the causal corner empties for some rows weighs 0."""
+    rng = np.random.default_rng(s + d + window)
+    q = _normal(rng, (b, hq, s, d), torch.bfloat16, cuda_device)
+    k = _normal(rng, (b, hkv, s, d), torch.bfloat16, cuda_device)
+    v = _normal(rng, (b, hkv, s, d), torch.bfloat16, cuda_device)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    longest = max(e - lo for lo, e in (
+        FA.visit_range(t, s, bq, bk, causal, window)
+        for t in range(-(-s // bq))))
+    seen = set()
+    for t in [0] + list(range(longest - 1, 1, -1)):
+        plan = FA.SplitPlan(b, hq, s, d, bq, bk, causal, window, t)
+        key = tuple(len(c) for _, c in plan.tiles)
+        if key in seen:
+            continue
+        seen.add(key)
+        got = _cut(q, k, v, plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2, msg=lambda m: f"cut {t}: {m}")
+    assert len(seen) > (1 if case != "S < block_q" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,causal", [(768, 256, True), (272, 256, True),
+                                         (1500, 64, False)])
+def test_flash_split_call_counts_replays_bit_equal_on_cuda(cuda_device, s, d,
+                                                           causal):
+    """The wrapper on rows 3p and 3w: one flash launch a call, one combine
+    launch where the plan splits; two calls and a CUDA-graph replay (the
+    workspace from the graph's pool) bit-equal to an eager call."""
+    hq, hkv = (8, 1) if d == 256 else (12, 12)
+    rng = np.random.default_rng(s)
+    q = _normal(rng, (1, hq, s, d), torch.bfloat16, cuda_device)
+    k = _normal(rng, (1, hkv, s, d), torch.bfloat16, cuda_device)
+    v = _normal(rng, (1, hkv, s, d), torch.bfloat16, cuda_device)
+    plan = FA.device_plan(cuda_device, 1, hq, s, d,
+                          *FA.default_tiles(torch.bfloat16, d), causal, 0)
+    before = (FA.flash_attention.launches, FA.flash_attention_combine.launches)
+    first = FA.flash_attention(q, k, v, causal=causal)
+    second = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before[0] + 2
+    assert (FA.flash_attention_combine.launches
+            == before[1] + (2 if plan.partials else 0))
+    assert torch.equal(first, second)
+    torch.testing.assert_close(
+        first.float(), FA.flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=2e-2, atol=2e-2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = FA.flash_attention(q, k, v, causal=causal)
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    del graph
+
+
+@pytest.mark.cuda
+def test_flash_combine_kernel_matches_its_plain_version_on_cuda(cuda_device):
+    """The combine alone on partials the split kernel wrote, against
+    ``flash_attention_combine_plain`` on the same partials; a launch whose
+    chunk_tiles is not the card's plan raises."""
+    b, hq, s, d = 1, 8, 768, 256
+    rng = np.random.default_rng(7)
+    q = _normal(rng, (b, hq, s, d), torch.bfloat16, cuda_device)
+    k = _normal(rng, (b, 1, s, d), torch.bfloat16, cuda_device)
+    v = _normal(rng, (b, 1, s, d), torch.bfloat16, cuda_device)
+    plan = FA.SplitPlan(b, hq, s, d, 128, 64, True, 0, 3)
+    lib = FA._lib()
+    o = torch.zeros_like(q)
+    part = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                       device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    FA._build.check(lib.flash_attention_launch_schedule(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, 1, s,
+        d, 128, 64, 1, 0, 1 / np.sqrt(d), 1, 3, part.data_ptr(), part.numel(),
+        stream), lib, "split")
+    torch.cuda.synchronize()
+    want = FA.flash_attention_combine_plain(part, plan, o)
+    before = FA.flash_attention_combine.launches
+    got = FA.flash_attention_combine(part, plan, o.clone())
+    torch.cuda.synchronize()
+    assert FA.flash_attention_combine.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    card = FA.device_plan(cuda_device, b, hq, s, d, 128, 64, True, 0)
+    code = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, 1, s,
+        d, 128, 64, 1, 0, 1 / np.sqrt(d), 1, card.chunk_tiles + 1,
+        part.data_ptr(), part.numel(), stream)
+    assert code != 0
+
+
 # whisper serves over ref attention (its cross-attention has s != sk)
 FRONTEND_HOPPER = {"whisper-small": {}, "paligemma-3b": {"attn_core": "hopper"}}
 

@@ -152,7 +152,8 @@ def main() -> int:
     for name, (path, _) in libs.items():
         lib = ctypes.CDLL(str(path))
         lib.flash_attention_launch.argtypes = (vp, vp, vp, vp, i, i, i, i, i,
-                                               i, i, i, i, f, i, vp)
+                                               i, i, i, i, f, i, i, vp,
+                                               ctypes.c_longlong, vp)
         loaded[name] = lib
     for hq, hkv, d in SHAPES:
         q = torch.randn(1, hq, SEQ, d, generator=g).to(dev)
@@ -169,7 +170,7 @@ def main() -> int:
                     code = lib.flash_attention_launch(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         1, hq, hkv, SEQ, d, bq, bk, 1, 0, 1 / math.sqrt(d), 0,
-                        torch.cuda.current_stream().cuda_stream)
+                        0, None, 0, torch.cuda.current_stream().cuda_stream)
                     if code:
                         raise RuntimeError(f"{name} {bq}x{bk}: launch {code}")
                 run()
